@@ -6,19 +6,30 @@
 Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
 
 1. Setup: print the card's name and power limit, turn TF32 off, build the
-   CUDA kernel from ``msda_tpu_torch/csrc`` and print the build time.
-2. Kernel vs plain version: the forward kernel (K1) against
-   ``native_multiscale_deformable_attention`` on the same seeded inputs, at
-   the reference workload, Deformable DETR's encoder and decoder shapes and
-   a ragged N with out-of-bounds points; f32, bf16 and f16; every
-   padding_mode x align_corners.
+   CUDA kernels (K1 forward, K2 backward) from ``msda_tpu_torch/csrc``, one
+   ``nvcc`` each, started together, and print the build time and each
+   kernel's registers and spills.
+2. Kernels vs plain versions: K1 against
+   ``native_multiscale_deformable_attention`` and K2 against
+   ``native_msda_backward`` on the same seeded inputs, at the reference
+   workload, Deformable DETR's encoder and decoder shapes and a ragged N
+   with out-of-bounds points; f32, bf16 and f16; every padding_mode x
+   align_corners.
 3. Model parity: the full-width Deformable DETR (box refinement, no
    two-stage, so that no top-k can flip on a near tie) with impl="cuda"
-   against impl="reference", same weights, f32.
+   against impl="reference", same weights, f32: the outputs, then the
+   loss and every parameter's gradient (fixed matcher, so that no auction
+   can flip on a near tie either).
 4. Serving: the full-width two-stage model answers 3 requests of batch 2
    (forward + postprocess) in f32 and in bf16, under inference_mode; each
-   forward must launch the kernel 12 times.  Then the kernel is timed
-   against its plain version.
+   forward must launch K1 12 times.
+5. Training, the main path of the backward: the full-width two-stage model,
+   batch 2, focal loss + auction matcher + aux and proposal losses, AdamW;
+   one warm-up step and 5 steps on a fixed synthetic batch, in f32 and in
+   bf16, then one step with remat=True.  Each step must launch K1 12 times
+   (24 with remat) and K2 12 times; the losses must be finite and fall.
+6. Timing: K1 and K2 against their plain versions, in turns; then K1 and K2
+   alone at the 256-base pyramid (I = 87,040), beyond the card's L2.
 
 Any failure raises, and the script exits non-zero.  The line before the
 last is a JSON summary of the kernels; the last line is
@@ -39,8 +50,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from msda_tpu_torch.models import DeformableDetr, init_parameters, postprocess  # noqa: E402
-from msda_tpu_torch.ops import _build, cuda_fwd  # noqa: E402
+from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd  # noqa: E402
+from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
+from msda_tpu_torch.parallel import detection_loss, make_train_step  # noqa: E402
 
 # Deformable DETR (Zhu et al., arXiv:2010.04159 §4, App. A): an 800x1333
 # image at strides 8/16/32/64, ResNet-50 C3-C5 + one extra level.
@@ -55,16 +68,41 @@ MODEL = dict(num_classes=91, in_channels=IN_CHANNELS, emb_dim=256,
 LAUNCHES_PER_FORWARD = 12  # 6 encoder + 6 decoder layers
 # the reference workload of the benchmarks (msda_tpu/utils/bench.py)
 REF_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
+# scripts/benchmark.py --pyramid big: I = 87,040, 356 MB of f32 img at B=4
+BIG_SHAPES = ((256, 256), (128, 128), (64, 64), (32, 32))
+# training: 50 target slots per image, a seeded ~7 of them real (COCO's
+# mean); the Deformable DETR optimizer (AdamW, lr 2e-4, weight decay 1e-4)
+TARGET_SLOTS = 50
+TRAIN_STEPS = 5
+LOSS_KW = dict(matcher="auction", class_loss="focal", aux_weight=1.0,
+               enc_weight=1.0, l1_weight=5.0, giou_weight=2.0)
 
 # kernel vs plain: |kernel - plain| <= tol * max(1, |plain|); about two ulps
 # of the output type for the half types (both round an f32 sum once)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 MODEL_TOL = 1e-4
+# K2 vs plain, relative to max(1, |plain|): both compute the point gradients
+# exactly (f64 channel sums) on the same f32 geometry and the weight
+# gradients as f32 channel sums; img_grad is an f32 atomic sum
+# (run-dependent order) in K2, rounded once to the half types on both sides
+POINT_GRAD_TOL = 1e-4
+IMG_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+                torch.float16: 2e-3}
+# full-width gradients, cuda vs reference: |diff| <= GRAD_TOL * scale, where
+# scale is the tensor's largest gradient, but at least GRAD_FLOOR of the
+# model's largest (a gradient that is zero in exact arithmetic, like the
+# self-attention key bias's, holds rounding noise only)
+GRAD_TOL = 1e-3
+GRAD_FLOOR = 1e-3
 MODES = [(p, a) for p in ("border", "zeros") for a in (False, True)]
 
 DEVICE = torch.device("cuda")
-KERNEL_SOURCE = "msda_tpu_torch/csrc/msda_fwd.cu"
-KERNEL_REPLACES = "msda_tpu/ops/pallas_fwd.py:440"
+KERNELS = {  # name: (module, source, TPU kernel it replaces)
+    cuda_fwd.KERNEL: (cuda_fwd, "msda_tpu_torch/csrc/msda_fwd.cu",
+                      "msda_tpu/ops/pallas_fwd.py:440"),
+    cuda_bwd.KERNEL: (cuda_bwd, "msda_tpu_torch/csrc/msda_bwd.cu",
+                      "msda_tpu/ops/pallas_bwd.py:147"),
+}
 
 
 def log(msg: str) -> None:
@@ -85,17 +123,22 @@ def setup() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cuda_fwd.load()
-    log(f"build: {cuda_fwd.KERNEL} ready in {time.perf_counter() - t0:.2f} s")
+    _build.build(list(KERNELS))
+    for module, _, _ in KERNELS.values():
+        module.load()
+    log(f"build: {', '.join(KERNELS)} ready in "
+        f"{time.perf_counter() - t0:.2f} s")
     # one register/spill report per template instantiation (f32, f16, bf16)
-    for line in _build.build_log(cuda_fwd.KERNEL).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  {line.strip()}")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
     return smi
 
 
-def op_inputs(shapes, B, N, H, C, P, seed, oob=False):
-    """Seeded numpy inputs on the card: img f32, points f32, weights f32."""
+def op_inputs(shapes, B, N, H, C, P, seed, oob=False, out_grad=False):
+    """Seeded numpy inputs on the card: img f32, points f32, weights f32
+    (and an f32 out_grad [B, N, H, C] with ``out_grad=True``)."""
     rng = np.random.default_rng(seed)
     L = len(shapes)
     I = sum(h * w for h, w in shapes)  # noqa: E741
@@ -106,9 +149,11 @@ def op_inputs(shapes, B, N, H, C, P, seed, oob=False):
     logits = rng.standard_normal((B, N, H, L * P), dtype=np.float32)
     wts = np.exp(logits - logits.max(-1, keepdims=True))
     wts = (wts / wts.sum(-1, keepdims=True)).reshape(B, N, H, L, P)
-    return (torch.from_numpy(img).to(DEVICE),
-            torch.from_numpy(pts).to(DEVICE),
-            torch.from_numpy(wts).to(DEVICE))
+    out = [torch.from_numpy(a).to(DEVICE) for a in (img, pts, wts)]
+    if out_grad:
+        out.append(torch.from_numpy(rng.standard_normal(
+            (B, N, H, C), dtype=np.float32)).to(DEVICE))
+    return out
 
 
 OP_CASES = {
@@ -164,6 +209,47 @@ def check_kernel() -> float:
     return enc_f32_err
 
 
+def check_backward_kernel() -> float:
+    """Phase 2, K2; returns the largest f32 abs error (over the three
+    gradients) at the encoder shape."""
+    enc_f32_err = 0.0
+    for name, case in OP_CASES.items():
+        img32, pts, wts, og32 = op_inputs(**case, out_grad=True)
+        for dtype in TOL:
+            img, og = img32.to(dtype), og32.to(dtype)
+            for padding_mode, align_corners in MODES:
+                got = cuda_bwd.msda_bwd(img, case["shapes"], pts, wts, og,
+                                        padding_mode, align_corners)
+                torch.cuda.synchronize()
+                want = plain_msda_bwd(img, case["shapes"], pts, wts, og,
+                                      padding_mode, align_corners)
+                report, ok = [], True
+                for grad, g, w, tol in zip(
+                        ("img", "points", "weights"), got, want,
+                        (IMG_GRAD_TOL[dtype], POINT_GRAD_TOL,
+                         POINT_GRAD_TOL)):
+                    if g.shape != w.shape or g.dtype != w.dtype:
+                        raise AssertionError(
+                            f"{name}: K2 gave {grad}_grad {g.shape} "
+                            f"{g.dtype}, plain {w.shape} {w.dtype}")
+                    abs_err, _, mixed = errors(g, w)
+                    ok &= mixed <= tol and torch.isfinite(g).all().item()
+                    report.append(f"{grad} {abs_err:.2e}/{mixed:.2e} "
+                                  f"(tol {tol:g})")
+                    if name == "encoder" and dtype == torch.float32:
+                        enc_f32_err = max(enc_f32_err, abs_err)
+                log(f"K2 {name:18s} {str(dtype)[6:]:8s} {padding_mode:6s} "
+                    f"ac={int(align_corners)}: max_abs/err "
+                    f"{'; '.join(report)} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"K2 disagrees with the plain version: {name} "
+                        f"{dtype} {padding_mode} ac={align_corners}")
+                del got, want
+        del img32, pts, wts, og32
+    return enc_f32_err
+
+
 def make_pyramid(seed: int):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(
@@ -171,9 +257,30 @@ def make_pyramid(seed: int):
         for (h, w), c in zip(SLICE_SHAPES, IN_CHANNELS)]
 
 
-def build_model(impl: str, two_stage: bool, compute_dtype=None):
+def make_targets(seed: int):
+    """Synthetic targets for the batch: TARGET_SLOTS slots per image, a
+    seeded 5 to 9 of them real; labels in [0, 91), cxcywh boxes with w and
+    h in [0.05, 0.5] inside the image."""
+    rng = np.random.default_rng(seed)
+    shape = (BATCH, TARGET_SLOTS)
+    wh = rng.uniform(0.05, 0.5, shape + (2,))
+    centers = wh / 2 + rng.random(shape + (2,)) * (1 - wh)
+    mask = np.zeros(shape, np.float32)
+    for b in range(BATCH):
+        mask[b, :rng.integers(5, 10)] = 1.0
+    return {
+        "labels": torch.from_numpy(rng.integers(
+            0, MODEL["num_classes"], shape)).to(DEVICE),
+        "boxes": torch.from_numpy(np.concatenate(
+            [centers, wh], -1).astype(np.float32)).to(DEVICE),
+        "mask": torch.from_numpy(mask).to(DEVICE),
+    }
+
+
+def build_model(impl: str, two_stage: bool, compute_dtype=None,
+                remat=False):
     model = DeformableDetr(**MODEL, two_stage=two_stage, impl=impl,
-                           compute_dtype=compute_dtype,
+                           compute_dtype=compute_dtype, remat=remat,
                            device=DEVICE)
     return init_parameters(model, torch.Generator().manual_seed(0)).eval()
 
@@ -196,6 +303,55 @@ def check_model_parity() -> None:
         if not ok:
             raise AssertionError(f"full-width model: impl='cuda' and "
                                  f"impl='reference' disagree on {key}")
+
+
+def check_gradient_parity() -> None:
+    """Phase 3, gradients: the loss and every parameter's gradient, cuda
+    against reference (the reference with remat=True, so that one encoder
+    layer's gathers are alive at a time; the gradients are the same)."""
+    pyramid, targets = make_pyramid(11), make_targets(12)
+    grads, losses = {}, {}
+    for impl in ("cuda", "reference"):
+        model = build_model(impl, two_stage=False,
+                            remat=impl == "reference").train()
+        before = cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES
+        loss = detection_loss(model(pyramid, SLICE_SHAPES), targets,
+                              matcher="fixed", class_loss="focal")
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (cuda_fwd.LAUNCHES - before[0],
+                    cuda_bwd.LAUNCHES - before[1])
+        want = (12, 12) if impl == "cuda" else (0, 0)
+        if launched != want:
+            raise AssertionError(f"impl={impl!r} launched (K1, K2) "
+                                 f"{launched}, expected {want}")
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters()}
+        del model, loss
+    floor = GRAD_FLOOR * max(g.abs().max().item()
+                             for g in grads["reference"].values())
+    worst, worst_name = 0.0, ""
+    for name, want in grads["reference"].items():
+        got = grads["cuda"][name]
+        if got is None or not torch.isfinite(got).all():
+            raise AssertionError(f"gradient of {name} is missing or not "
+                                 "finite with impl='cuda'")
+        scale = max(want.abs().max().item(), floor)
+        err = (got - want).abs().max().item() / scale
+        if err > worst:
+            worst, worst_name = err, name
+    loss_err = abs(losses["cuda"] - losses["reference"]) / abs(
+        losses["reference"])
+    ok = worst <= GRAD_TOL and loss_err <= MODEL_TOL
+    log(f"gradient parity: loss cuda {losses['cuda']:.6f} reference "
+        f"{losses['reference']:.6f} (rel {loss_err:.2e}, tol {MODEL_TOL:g});"
+        f" {len(grads['cuda'])} parameter gradients, worst {worst:.2e} "
+        f"({worst_name}) of each tensor's largest gradient (tol "
+        f"{GRAD_TOL:g}, floor {GRAD_FLOOR:g} of the model's largest, "
+        f"{floor:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("full-width gradients: impl='cuda' and "
+                             "impl='reference' disagree")
 
 
 def serve_once(model, pyramid, image_sizes):
@@ -271,6 +427,67 @@ def serve(smi: str) -> dict:
     return launches
 
 
+def train(smi: str) -> dict:
+    """Phase 5: the main path of the backward.  Returns the launches of
+    K1 and K2 over the training run."""
+    pyramid, targets = make_pyramid(30), make_targets(31)
+    cuda_fwd.LAUNCHES = cuda_bwd.LAUNCHES = 0
+    steps = 0
+    runs = (("f32", None, False, 1 + TRAIN_STEPS),
+            ("bf16", torch.bfloat16, False, 1 + TRAIN_STEPS),
+            ("f32 remat", None, True, 1))
+    for name, compute_dtype, remat, n_steps in runs:
+        model = build_model("auto", True, compute_dtype, remat).train()
+        optimizer = torch.optim.AdamW(model.parameters(), lr=2e-4,
+                                      weight_decay=1e-4)
+        step = make_train_step(model, optimizer, SLICE_SHAPES,
+                               return_metrics=True, **LOSS_KW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1_per_step = 2 * LAUNCHES_PER_FORWARD if remat else (
+            LAUNCHES_PER_FORWARD)
+        losses, times = [], []
+        for i in range(n_steps):
+            before = cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, metrics = step(pyramid, targets)
+            end.record()
+            torch.cuda.synchronize()
+            steps += 1
+            launched = (cuda_fwd.LAUNCHES - before[0],
+                        cuda_bwd.LAUNCHES - before[1])
+            losses.append(loss.item())
+            times.append(start.elapsed_time(end))
+            log(f"train {name} step {i} ({'warm-up' if i == 0 else 'timed'})"
+                f": loss {losses[-1]:.6f} matcher_converged "
+                f"{bool(metrics['matcher_converged'])} {times[-1]:.3f} ms, "
+                f"K1 {launched[0]} K2 {launched[1]} launches")
+            if launched != (k1_per_step, LAUNCHES_PER_FORWARD):
+                raise AssertionError(
+                    f"a {name} training step launched (K1, K2) {launched}, "
+                    f"expected {(k1_per_step, LAUNCHES_PER_FORWARD)}")
+            if not np.isfinite(losses[-1]):
+                raise AssertionError(f"{name}: loss is not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        timed = times[1:] or times
+        log(f"train {name}: batch {BATCH} at {IMAGE_HW[0]}x{IMAGE_HW[1]}, "
+            f"mean step {sum(timed) / len(timed):.3f} ms over {len(timed)} "
+            f"step(s), peak allocated {peak:.3f} GiB on {smi}")
+        if n_steps > 1 and not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: the loss did not fall on a "
+                                 f"repeated batch: {losses}")
+        for p in model.parameters():
+            if not torch.isfinite(p).all():
+                raise AssertionError(f"{name}: a parameter is not finite")
+        del model, optimizer, step
+    launches = {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
+                cuda_bwd.KERNEL: cuda_bwd.LAUNCHES}
+    log(f"training: {steps} steps, launches {launches}")
+    return launches
+
+
 def time_ms(fn, iters: int) -> float:
     for _ in range(2):
         fn()
@@ -315,23 +532,89 @@ def time_kernel(smi: str) -> dict:
     return times
 
 
+def time_backward_kernel(smi: str) -> dict:
+    """K2 vs its plain version, in turns (plain, kernel, kernel, plain);
+    then, once, autograd through the plain forward in the working dtype,
+    which is what impl="reference" costs in training (the plain version
+    sums in f64)."""
+    times = {}
+    for name in ("encoder", "decoder", "reference_workload"):
+        case = OP_CASES[name]
+        img32, pts, wts, og32 = op_inputs(**case, out_grad=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            img, og = img32.to(dtype), og32.to(dtype)
+            args = (img, case["shapes"], pts, wts, og)
+
+            def kernel():
+                cuda_bwd.msda_bwd(*args)
+
+            def plain():
+                plain_msda_bwd(*args)
+
+            def autograd():
+                with torch.enable_grad():
+                    ins = [t.detach().requires_grad_(True)
+                           for t in (img, pts, wts)]
+                    out = plain_msda(ins[0], case["shapes"], *ins[1:])
+                    torch.autograd.grad(out, ins, og)
+
+            p1 = time_ms(plain, 3)
+            k1 = time_ms(kernel, 20)
+            k2 = time_ms(kernel, 20)
+            p2 = time_ms(plain, 3)
+            a = time_ms(autograd, 3)
+            k, p = (k1 + k2) / 2, (p1 + p2) / 2
+            times[(name, dtype)] = (k, p)
+            log(f"time K2 {name:18s} {str(dtype)[6:]:8s}: kernel {k:.4f} ms"
+                f" ({k1:.4f}, {k2:.4f}), plain {p:.4f} ms ({p1:.4f}, "
+                f"{p2:.4f}), plain/kernel {p / k:.2f}x; autograd through "
+                f"the plain forward {a:.4f} ms on {smi}")
+            del args, img, og
+        del img32, pts, wts, og32
+    return times
+
+
+def time_big_pyramid(smi: str) -> None:
+    """K1 and K2 alone at the 256-base pyramid (f32 img of 356 MB, beyond
+    the 50 MB L2): the measurement to take before a streamed large-pyramid
+    kernel is designed."""
+    img, pts, wts, og = op_inputs(BIG_SHAPES, B=4, N=10000, H=8, C=32, P=4,
+                                  seed=40, out_grad=True)
+    fwd = time_ms(lambda: cuda_fwd.msda_fwd(img, BIG_SHAPES, pts, wts), 20)
+    bwd = time_ms(lambda: cuda_bwd.msda_bwd(img, BIG_SHAPES, pts, wts, og),
+                  20)
+    log(f"time big pyramid (256/128/64/32, I=87040, B=4, N=10000, H=8, C=32,"
+        f" P=4, f32): K1 {fwd:.4f} ms, K2 {bwd:.4f} ms on {smi}")
+
+
 def main() -> None:
     smi = setup()
-    enc_err = check_kernel()
+    errs = {cuda_fwd.KERNEL: check_kernel(),
+            cuda_bwd.KERNEL: check_backward_kernel()}
     check_model_parity()
-    launches = serve(smi)
-    times = time_kernel(smi)
-    ms, plain_ms = times[("encoder", torch.float32)]
-    log(json.dumps({"kernels": [{
-        "name": cuda_fwd.KERNEL,
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": enc_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    check_gradient_parity()
+    serving = serve(smi)
+    training = train(smi)
+    times = {cuda_fwd.KERNEL: time_kernel(smi),
+             cuda_bwd.KERNEL: time_backward_kernel(smi)}
+    time_big_pyramid(smi)
+    kernels = []
+    for name, (_, source, replaces) in KERNELS.items():
+        ms, plain_ms = times[name][("encoder", torch.float32)]
+        by_path = {"serve": serving if name == cuda_fwd.KERNEL else 0,
+                   "train": training[name]}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

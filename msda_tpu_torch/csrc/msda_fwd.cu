@@ -9,8 +9,10 @@
 // with grid_sample semantics (point_geometry in pallas_fwd.py): coordinates
 // are unnormalized by align_corners, floored with floorf (they can be
 // negative), the zeros-mode corner masks are taken on the *unclamped* corner
-// indices, and the indices are clamped afterwards.  The sum accumulates in
-// f32 and is rounded once to the output type, which is img's type.
+// indices, and the indices are clamped afterwards.  That geometry is
+// msda::corner_geometry in msda_geometry.cuh, shared with the backward (K2,
+// msda_bwd.cu).  The sum accumulates in f32 and is rounded once to the output
+// type, which is img's type.
 //
 // Design.  The Pallas kernel folds the bilinear weights into dense matrices
 // and contracts them on the MXU because a TPU has no gather; none of that is
@@ -40,42 +42,13 @@
 #include <climits>
 #include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#define MSDA_MAX_LEVELS 16
-#define MSDA_WARPS_PER_BLOCK 8
-#define MSDA_FULL_MASK 0xffffffffu
+#include "msda_geometry.cuh"
 
 namespace {
 
-struct LevelTable {
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int offset[MSDA_MAX_LEVELS];
-};
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float v) {
-  return __float2half_rn(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+using msda::LevelTable;
+using msda::from_float;
+using msda::to_float;
 
 // pts: [B, N, H, L, P, 2] f32, wts: [B, N, H, L, P] f32,
 // img: [B, I, H, C] T, out: [B, N, H, C] T; all contiguous.
@@ -113,53 +86,18 @@ __global__ void __launch_bounds__(MSDA_WARPS_PER_BLOCK * 32)
       float w00 = 0.f, w01 = 0.f, w10 = 0.f, w11 = 0.f;
       if (k < LP) {
         const int l = k / P;
-        const int hl = levels.h[l];
-        const int wl = levels.w[l];
-        const float x = pt[2 * k];
-        const float y = pt[2 * k + 1];
+        const msda::Corners g = msda::corner_geometry(
+            pt[2 * k], pt[2 * k + 1], levels.h[l], levels.w[l],
+            levels.offset[l], zeros, align_corners);
         const float a = wt[k];
-        // round the product and the shift separately, as the plain version
-        // does, so that floor() sees the same value (no FMA contraction)
-        float xp, yp;
-        if (align_corners) {
-          xp = __fmul_rn(x, (float)(wl - 1));
-          yp = __fmul_rn(y, (float)(hl - 1));
-        } else {
-          xp = __fsub_rn(__fmul_rn(x, (float)wl), 0.5f);
-          yp = __fsub_rn(__fmul_rn(y, (float)hl), 0.5f);
-        }
-        const float x0f = floorf(xp);
-        const float y0f = floorf(yp);
-        const float dx = xp - x0f;
-        const float dy = yp - y0f;
-        // bound the floats before the integer conversion; [-2, extent + 1]
-        // keeps every corner's validity as it was
-        const int x0 = (int)fminf(fmaxf(x0f, -2.f), (float)wl + 1.f);
-        const int y0 = (int)fminf(fmaxf(y0f, -2.f), (float)hl + 1.f);
-        bool mx0 = true, mx1 = true, my0 = true, my1 = true;
-        if (zeros) {
-          mx0 = x0 >= 0 && x0 < wl;
-          mx1 = x0 + 1 >= 0 && x0 + 1 < wl;
-          my0 = y0 >= 0 && y0 < hl;
-          my1 = y0 + 1 >= 0 && y0 + 1 < hl;
-        }
-        const float vx0 = mx0 ? 1.f - dx : 0.f;
-        const float vx1 = mx1 ? dx : 0.f;
-        const float uy0 = my0 ? 1.f - dy : 0.f;
-        const float uy1 = my1 ? dy : 0.f;
-        const int x0c = min(max(x0, 0), wl - 1);
-        const int x1c = min(max(x0 + 1, 0), wl - 1);
-        const int y0c = min(max(y0, 0), hl - 1);
-        const int y1c = min(max(y0 + 1, 0), hl - 1);
-        const int off = levels.offset[l];
-        i00 = off + y0c * wl + x0c;
-        i01 = off + y0c * wl + x1c;
-        i10 = off + y1c * wl + x0c;
-        i11 = off + y1c * wl + x1c;
-        w00 = a * uy0 * vx0;
-        w01 = a * uy0 * vx1;
-        w10 = a * uy1 * vx0;
-        w11 = a * uy1 * vx1;
+        i00 = g.i00;
+        i01 = g.i01;
+        i10 = g.i10;
+        i11 = g.i11;
+        w00 = a * g.uy0 * g.vx0;
+        w01 = a * g.uy0 * g.vx1;
+        w10 = a * g.uy1 * g.vx0;
+        w11 = a * g.uy1 * g.vx1;
       }
       const int count = min(32, LP - k0);
 #pragma unroll 4
@@ -211,15 +149,9 @@ int msda_fwd_launch(int dtype, const void* img, const void* pts,
   if (L < 1 || L > MSDA_MAX_LEVELS || P < 1 || C < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int* hw = static_cast<const int*>(level_hw);
   LevelTable levels;
-  int64_t pixels = 0;
-  for (int l = 0; l < L; ++l) {
-    levels.h[l] = hw[2 * l];
-    levels.w[l] = hw[2 * l + 1];
-    levels.offset[l] = (int)pixels;
-    pixels += (int64_t)hw[2 * l] * hw[2 * l + 1];
-  }
+  const int64_t pixels =
+      msda::fill_levels(levels, static_cast<const int*>(level_hw), L);
   if (pixels != I) return (int)cudaErrorInvalidValue;
   const int64_t num_tasks = (int64_t)B * N * H;
   if (num_tasks == 0) return (int)cudaSuccess;

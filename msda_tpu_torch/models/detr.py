@@ -9,8 +9,10 @@ initialisation; :func:`init_parameters` re-draws them from a
 ``torch.Generator``, and ``models.convert.state_dict_from_flax`` loads the
 JAX model's parameters.
 
-Layer rematerialisation (``remat``) and the device mesh (``mesh``) of the
-JAX model are training and multi-device features that are not ported yet.
+``remat=True`` recomputes each encoder and decoder layer in the backward
+instead of keeping its activations (``torch.utils.checkpoint``, the
+counterpart of the JAX model's ``nn.remat``).  The JAX model's device mesh
+(``mesh``) is a multi-device feature that is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import level_shapes
 from ..parallel.boxes import box_cxcywh_to_xyxy
@@ -226,7 +229,9 @@ class DeformableDetr(nn.Module):
     ``in_channels`` gives ``C_l`` per level (its length is the number of
     levels).  ``compute_dtype=torch.bfloat16`` runs the transformer stack
     in bf16 with f32 parameters; sampling geometry, reference-box math and
-    the prediction heads stay f32.
+    the prediction heads stay f32.  ``remat=True`` recomputes each encoder
+    and decoder layer in the backward instead of keeping its activations
+    (while gradients are enabled; the results are the same).
     """
 
     def __init__(
@@ -242,6 +247,7 @@ class DeformableDetr(nn.Module):
         ffn_dim: int = 1024,
         with_box_refinement: bool = False,
         two_stage: bool = False,
+        remat: bool = False,
         compute_dtype: torch.dtype | None = None,
         impl: str = "auto",
         device=None,
@@ -253,6 +259,7 @@ class DeformableDetr(nn.Module):
         self.num_queries = num_queries
         self.with_box_refinement = with_box_refinement
         self.two_stage = two_stage
+        self.remat = remat
         self.compute_dtype = compute_dtype
         cd = compute_dtype
         layer_args = dict(emb_dim=emb_dim, num_levels=L, num_heads=num_heads,
@@ -298,6 +305,11 @@ class DeformableDetr(nn.Module):
         B = pyramid[0].shape[0]
         device = pyramid[0].device
 
+        def run(layer, *args):
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(layer, *args, use_reentrant=False)
+            return layer(*args)
+
         feats = []
         for lvl, f in enumerate(pyramid):
             x = self.input_proj[lvl](f)
@@ -308,7 +320,7 @@ class DeformableDetr(nn.Module):
 
         enc_refs = make_encoder_reference_points(shapes, device)
         for layer in self.encoder_layers:
-            feats = layer(feats, shapes, enc_refs)
+            feats = run(layer, feats, shapes, enc_refs)
 
         queries = self.query_embedding[None].expand(B, -1, -1)
         if self.compute_dtype is not None:
@@ -339,7 +351,7 @@ class DeformableDetr(nn.Module):
 
         aux = []
         for i, layer in enumerate(self.decoder_layers):
-            queries = layer(queries, feats, shapes, refs)
+            queries = run(layer, queries, feats, shapes, refs)
             if i < len(self.box_refine):
                 # refs are detached between layers, as in the paper
                 refined = torch.sigmoid(

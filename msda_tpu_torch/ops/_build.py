@@ -2,10 +2,12 @@
 
 Each kernel source under ``msda_tpu_torch/csrc/`` is compiled by ``nvcc``
 into a shared library with a plain C interface, which the kernel's wrapper
-loads with ``ctypes``.  The build happens at first CUDA use, from the
-repository's sources only, into ``build/kernels/`` beside the package (a
-directory that ``.gitignore`` lists).  A library is rebuilt when its source
-is newer than it.  Importing this module needs neither ``nvcc`` nor a GPU.
+loads with ``ctypes``.  The build happens at first CUDA use (or ahead of it,
+for several kernels at once, with :func:`build`), from the repository's
+sources only, into ``build/kernels/`` beside the package (a directory that
+``.gitignore`` lists).  A library is rebuilt when its source or a shared
+header (``csrc/*.cuh``) is newer than it.  Importing this module needs
+neither ``nvcc`` nor a GPU.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ import threading
 from pathlib import Path
 
 __all__ = [
-    "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "load_library",
-    "build_log",
+    "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build",
+    "load_library", "build_log",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -33,7 +35,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -56,6 +58,13 @@ def find_nvcc() -> str:
     )
 
 
+def _sources(name: str) -> list[Path]:
+    source = CSRC_DIR / f"{name}.cu"
+    if not source.is_file():
+        raise RuntimeError(f"kernel source {source} is missing")
+    return [source, *sorted(CSRC_DIR.glob("*.cuh"))]
+
+
 def _stale(lib: Path, sources: list[Path]) -> bool:
     if not lib.exists():
         return True
@@ -63,26 +72,51 @@ def _stale(lib: Path, sources: list[Path]) -> bool:
     return any(s.stat().st_mtime > built for s in sources)
 
 
-def _compile(name: str, source: Path, lib: Path) -> str:
-    """Compile ``source`` into ``lib`` atomically; return nvcc's log."""
+def _compile(names: list[str]) -> None:
+    """Compile each ``csrc/<name>.cu`` into ``lib<name>.so`` atomically, one
+    ``nvcc`` per source, all started together; keep each log beside it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=f".{name}.", suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    nvcc = find_nvcc()
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {source.name} (exit {proc.returncode}):"
-                f"\n$ {' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
-            )
-        os.replace(tmp, lib)
+        for name in names:
+            fd, tmp = tempfile.mkstemp(prefix=f".{name}.", suffix=".so",
+                                       dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+            jobs.append((name, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, tmp, cmd, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {name}.cu (exit "
+                              f"{proc.returncode}):\n$ {' '.join(cmd)}\n"
+                              f"{err}{out}")
+                continue
+            os.replace(tmp, BUILD_DIR / f"lib{name}.so")
+            (BUILD_DIR / f"{name}.log").write_text(err + out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    log = proc.stderr + proc.stdout
-    (BUILD_DIR / f"{name}.log").write_text(log)
-    return log
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
+def build(names) -> None:
+    """Build the libraries of ``names`` that are missing or older than their
+    sources, concurrently.  Raises ``RuntimeError`` with nvcc's output when
+    a build fails."""
+    with _LOCK:
+        stale = [n for n in names
+                 if _stale(BUILD_DIR / f"lib{n}.so", _sources(n))]
+        if stale:
+            _compile(stale)
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -90,16 +124,9 @@ def load_library(name: str) -> ctypes.CDLL:
     it is missing or older than its sources.  Raises ``RuntimeError`` with
     nvcc's output when the build fails."""
     with _LOCK:
-        if name in _LOADED:
-            return _LOADED[name]
-        source = CSRC_DIR / f"{name}.cu"
-        if not source.is_file():
-            raise RuntimeError(f"kernel source {source} is missing")
-        sources = [source, *sorted(CSRC_DIR.glob("*.cuh"))]
-        lib = BUILD_DIR / f"lib{name}.so"
-        if _stale(lib, sources):
-            _compile(name, source, lib)
-        _LOADED[name] = ctypes.CDLL(str(lib))
+        if name not in _LOADED:
+            build([name])
+            _LOADED[name] = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
         return _LOADED[name]
 
 

@@ -20,12 +20,12 @@ import torch
 from . import _build
 from .reference import level_shapes
 
-__all__ = ["LAUNCHES", "msda_fwd", "load"]
+__all__ = ["LAUNCHES", "msda_fwd", "load", "check_inputs"]
 
 KERNEL = "msda_fwd"
 MAX_LEVELS = 16  # MSDA_MAX_LEVELS in the source
 _INT32_MAX = 2**31 - 1
-_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # Number of kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
@@ -42,27 +42,20 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def msda_fwd(
-    img: torch.Tensor,
-    img_shapes,
-    sampling_points: torch.Tensor,
-    attention_weights: torch.Tensor,
-    padding_mode: str = "border",
-    align_corners: bool = False,
-) -> torch.Tensor:
-    """Launch K1 on ``torch.cuda.current_stream()``; returns ``[B, N, H, C]``.
+def check_inputs(img, img_shapes, sampling_points, attention_weights,
+                 padding_mode):
+    """Validate the inputs that K1 and K2 share.
 
-    ``img`` is bf16, f16 or f32 and contiguous; the points and weights may
-    be any float dtype (they are cast to f32).  Raises ``ValueError`` on
-    inputs the kernel does not take and ``RuntimeError`` when the build or
-    the launch fails.
+    Returns ``(level_hw, pts, wts)``: the level shapes as a ctypes
+    ``int[L * 2]`` array for the launch, and the points and weights cast to
+    contiguous f32.  Raises ``ValueError`` on
+    anything the kernels do not take.
     """
-    global LAUNCHES
     if padding_mode not in ("border", "zeros"):
         raise ValueError(
             f"padding_mode must be 'border' or 'zeros', got {padding_mode!r}"
         )
-    if img.dtype not in _DTYPE_CODES:
+    if img.dtype not in DTYPE_CODES:
         raise ValueError(
             f"the CUDA kernel takes img in bf16, f16 or f32, got {img.dtype}"
         )
@@ -111,17 +104,40 @@ def msda_fwd(
     if not (pts.is_contiguous() and wts.is_contiguous()):
         raise ValueError("sampling_points and attention_weights must be "
                          "contiguous")
+    level_hw = (ctypes.c_int * (2 * L))(*(v for hw in shapes for v in hw))
+    return level_hw, pts, wts
+
+
+def msda_fwd(
+    img: torch.Tensor,
+    img_shapes,
+    sampling_points: torch.Tensor,
+    attention_weights: torch.Tensor,
+    padding_mode: str = "border",
+    align_corners: bool = False,
+) -> torch.Tensor:
+    """Launch K1 on ``torch.cuda.current_stream()``; returns ``[B, N, H, C]``.
+
+    ``img`` is bf16, f16 or f32 and contiguous; the points and weights may
+    be any float dtype (they are cast to f32).  Raises ``ValueError`` on
+    inputs the kernel does not take and ``RuntimeError`` when the build or
+    the launch fails.
+    """
+    global LAUNCHES
+    level_hw, pts, wts = check_inputs(img, img_shapes, sampling_points,
+                                      attention_weights, padding_mode)
+    B, I, H, C = img.shape  # noqa: E741
+    _, N, _, L, P, _ = pts.shape
 
     lib = load()
     out = torch.empty((B, N, H, C), dtype=img.dtype, device=img.device)
     if out.numel() == 0:
         return out
-    level_hw = (ctypes.c_int * (2 * L))(*(v for hw in shapes for v in hw))
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         LAUNCHES += 1
         err = lib.msda_fwd_launch(
-            _DTYPE_CODES[img.dtype], img.data_ptr(), pts.data_ptr(),
+            DTYPE_CODES[img.dtype], img.data_ptr(), pts.data_ptr(),
             wts.data_ptr(), out.data_ptr(), ctypes.addressof(level_hw),
             B, I, N, H, C, L, P,
             int(padding_mode == "zeros"), int(bool(align_corners)), stream,

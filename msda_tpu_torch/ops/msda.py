@@ -2,11 +2,13 @@
 
 The counterpart of ``msda_tpu/ops/msda.py``.  Implementations:
 
-    "cuda":      the hand-written CUDA forward kernel (``cuda_fwd.py``,
-                 K1), the counterpart of the JAX package's "pallas".  It
+    "cuda":      the hand-written CUDA kernels, the counterpart of the JAX
+                 package's "pallas": the forward K1 (``cuda_fwd.py``) and
+                 the backward K2 (``cuda_bwd.py``), bound as one autograd
+                 node that saves only its inputs (the backward
+                 rematerializes the sampling) and is first-order only.  It
                  takes CUDA tensors in bf16, f16 or f32 and always computes
-                 in f32.  Its backward kernel (K2) is not ported yet, so
-                 differentiating through it raises.
+                 in f32.
     "reference": the plain gather-based version (``reference.py``); any
                  device, f64-capable, differentiable through autograd.
     "auto":      "cuda" for CUDA tensors in bf16/f16/f32, "reference" for
@@ -19,6 +21,7 @@ that fails to build or launch raises.
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .reference import level_shapes, native_multiscale_deformable_attention
 
@@ -28,13 +31,6 @@ _VALID_PADDING = ("border", "zeros")
 _VALID_IMPL = ("auto", "cuda", "reference")
 _VALID_DTYPES = (torch.bfloat16, torch.float16, torch.float32, torch.float64)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-
-_BACKWARD_MISSING = (
-    "impl='cuda' is forward-only: the CUDA backward kernel (K2, the "
-    "counterpart of msda_tpu/ops/pallas_bwd.py:_bwd_kernel) is not ported "
-    "yet (ROADMAP.md, Queue 1 #4 'Backward kernel slice'). Use "
-    "impl='reference' to differentiate."
-)
 
 
 def _check_inputs(img, shapes, sampling_points, attention_weights):
@@ -97,21 +93,33 @@ def _resolve_impl(impl: str, img: torch.Tensor) -> str:
 
 
 class _CudaMSDA(torch.autograd.Function):
-    """The CUDA forward as an autograd node; its backward is K2, not yet
-    ported, so it raises."""
+    """The CUDA kernels as one autograd node, the counterpart of the JAX
+    ``_msda`` custom VJP: the forward is K1 and saves only the primal
+    inputs; the backward is K2, which rematerializes the sampling.  Like
+    ``impl="pallas"``, it is first-order only."""
 
     @staticmethod
     def forward(ctx, img, sampling_points, attention_weights,
                 shapes, padding_mode, align_corners):
         from . import cuda_fwd
 
+        ctx.save_for_backward(img, sampling_points, attention_weights)
+        ctx.geometry = (shapes, padding_mode, align_corners)
         return cuda_fwd.msda_fwd(img, shapes, sampling_points,
                                  attention_weights, padding_mode,
                                  align_corners)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, out_grad):
-        raise NotImplementedError(_BACKWARD_MISSING)
+        from . import cuda_bwd
+
+        img, sampling_points, attention_weights = ctx.saved_tensors
+        shapes, padding_mode, align_corners = ctx.geometry
+        grads = cuda_bwd.msda_bwd(img, shapes, sampling_points,
+                                  attention_weights, out_grad.contiguous(),
+                                  padding_mode, align_corners)
+        return (*grads, None, None, None)
 
 
 def multiscale_deformable_attention(

@@ -5,7 +5,8 @@ implementation of the MSDA op of Deformable DETR (arXiv:2010.04159) that
 runs on any device, in f32 or f64, and is differentiable through plain
 autograd.  It is the semantics specification of the port: the CUDA kernel
 (``cuda_fwd.py``) is held against it, on the CPU by the tests and on the
-card by ``chip_smoke.py``.
+card by ``chip_smoke.py``.  ``native_msda_backward`` is the plain version
+of the backward kernel (``cuda_bwd.py``, K2): autograd through this forward.
 
 It computes flat pyramid indices for the four bilinear corners of every
 sampling point and does four batched gathers over the flattened pixel axis.
@@ -30,6 +31,7 @@ import torch
 __all__ = [
     "level_shapes",
     "native_multiscale_deformable_attention",
+    "native_msda_backward",
     "compute_level_data",
 ]
 
@@ -84,40 +86,13 @@ def _unnormalize(coord, extent, align_corners):
     return coord * extent - 0.5
 
 
-def native_multiscale_deformable_attention(
-    img,
-    img_shapes,
-    sampling_points,
-    attention_weights,
-    padding_mode: str = "border",
-    align_corners: bool = False,
-):
-    """Gather-based multiscale deformable attention (any device).
-
-    Args:
-        img: ``[B, I, H, C]`` flattened feature pyramid where
-            ``I = sum(h_l * w_l)``.
-        img_shapes: ``[L, 2]`` integer (height, width) per pyramid level.
-        sampling_points: ``[B, N, H, L, P, 2]`` normalized (x, y) in [0, 1];
-            (0, 0) is the top-left corner, (1, 1) the bottom-right.
-        attention_weights: ``[B, N, H, L, P]``.
-        padding_mode: "border" clamps out-of-bounds samples to the nearest
-            pixel, "zeros" zeroes them (grid_sample semantics).
-        align_corners: grid alignment, see ``torch.nn.functional.grid_sample``.
-
-    Returns:
-        ``[B, N, H, C]`` attention-weighted bilinear samples in ``img.dtype``.
-        The arithmetic runs in f32 (f64 for f64 points) whatever the storage
-        dtype.
-    """
-    if padding_mode not in ("border", "zeros"):
-        raise ValueError(
-            f"padding_mode must be 'border' or 'zeros', got {padding_mode!r}"
-        )
-    B, I, H, C = img.shape  # noqa: E741
-    _, N, _, L, P, _ = sampling_points.shape
-    device = img.device
-
+def _geometry(img_shapes, sampling_points, padding_mode, align_corners,
+              device):
+    """The bilinear corners of every sampling point, in the points' dtype
+    (at least f32): flat pyramid indices of the four corners
+    ``[B, N, H, L, P]`` (clamped), the fractional offsets ``dx``, ``dy``
+    ``[B, N, H, L, P, 1]`` (differentiable in the points) and, in zeros
+    mode, the four corner masks (None in border mode)."""
     compute_dtype = torch.promote_types(sampling_points.dtype, torch.float32)
     pts = sampling_points.to(compute_dtype)
 
@@ -147,35 +122,48 @@ def native_multiscale_deformable_attention(
     x1c = torch.clamp(x1i, min=0).minimum(wi - 1)
     y0c = torch.clamp(y0i, min=0).minimum(hi - 1)
     y1c = torch.clamp(y1i, min=0).minimum(hi - 1)
+    corners = tuple(offs + yc * wi + xc for yc, xc in
+                    ((y0c, x0c), (y0c, x1c), (y1c, x0c), (y1c, x1c)))
+
+    masks = None
+    if padding_mode == "zeros":
+        # a corner is valid iff its *unclamped* index lies inside the level
+        mx0 = ((x0i >= 0) & (x0i < wi))[..., None]
+        mx1 = ((x1i >= 0) & (x1i < wi))[..., None]
+        my0 = ((y0i >= 0) & (y0i < hi))[..., None]
+        my1 = ((y1i >= 0) & (y1i < hi))[..., None]
+        masks = (my0, mx0, my1, mx1)
+    return corners, dx, dy, masks
+
+
+def _interpolate(img, geometry, attention_weights, dtype):
+    """Gather the four corners of every point and sum the weighted bilinear
+    samples in ``dtype``: ``[B, N, H, C]``."""
+    corners, dx, dy, masks = geometry
+    B, _, H, C = img.shape
+    _, N, _, L, P = corners[0].shape
+    dx = dx.to(dtype)
+    dy = dy.to(dtype)
 
     # img laid out [B, H, I, C] so the gather axis is contiguous per (b, h)
     img_t = img.permute(0, 2, 1, 3)
 
-    def gather(yc, xc):
+    def gather(idx):
         """Gather img rows at the flat pyramid index per point -> [B,N,H,L,P,C]."""
-        idx = offs + yc * wi + xc  # [B, N, H, L, P]
         idx_t = idx.permute(0, 2, 1, 3, 4).reshape(B, H, N * L * P, 1)
         g = torch.gather(img_t, 2, idx_t.expand(B, H, N * L * P, C))
         return g.reshape(B, H, N, L, P, C).permute(0, 2, 1, 3, 4, 5)
 
-    v00 = gather(y0c, x0c)
-    v01 = gather(y0c, x1c)
-    v10 = gather(y1c, x0c)
-    v11 = gather(y1c, x1c)
+    v00, v01, v10, v11 = (gather(idx) for idx in corners)
 
-    one = torch.ones((), dtype=compute_dtype, device=device)
-    if padding_mode == "zeros":
-        # a corner is valid iff its *unclamped* index lies inside the level
-        mx0 = ((x0i >= 0) & (x0i < wi)).to(compute_dtype)[..., None]
-        mx1 = ((x1i >= 0) & (x1i < wi)).to(compute_dtype)[..., None]
-        my0 = ((y0i >= 0) & (y0i < hi)).to(compute_dtype)[..., None]
-        my1 = ((y1i >= 0) & (y1i < hi)).to(compute_dtype)[..., None]
+    if masks is not None:
+        my0, mx0, my1, mx1 = (m.to(dtype) for m in masks)
         w00 = my0 * mx0
         w01 = my0 * mx1
         w10 = my1 * mx0
         w11 = my1 * mx1
     else:
-        w00 = w01 = w10 = w11 = one
+        w00 = w01 = w10 = w11 = torch.ones((), dtype=dtype, device=img.device)
 
     c00 = w00 * (1.0 - dy) * (1.0 - dx)
     c01 = w01 * (1.0 - dy) * dx
@@ -183,13 +171,91 @@ def native_multiscale_deformable_attention(
     c11 = w11 * dy * dx
 
     samples = (
-        v00.to(compute_dtype) * c00
-        + v01.to(compute_dtype) * c01
-        + v10.to(compute_dtype) * c10
-        + v11.to(compute_dtype) * c11
+        v00.to(dtype) * c00
+        + v01.to(dtype) * c01
+        + v10.to(dtype) * c10
+        + v11.to(dtype) * c11
     )  # [B, N, H, L, P, C]
 
-    out = torch.einsum(
-        "bnhlpc,bnhlp->bnhc", samples, attention_weights.to(compute_dtype)
+    return torch.einsum(
+        "bnhlpc,bnhlp->bnhc", samples, attention_weights.to(dtype)
     )
+
+
+def _check_padding(padding_mode):
+    if padding_mode not in ("border", "zeros"):
+        raise ValueError(
+            f"padding_mode must be 'border' or 'zeros', got {padding_mode!r}"
+        )
+
+
+def native_multiscale_deformable_attention(
+    img,
+    img_shapes,
+    sampling_points,
+    attention_weights,
+    padding_mode: str = "border",
+    align_corners: bool = False,
+):
+    """Gather-based multiscale deformable attention (any device).
+
+    Args:
+        img: ``[B, I, H, C]`` flattened feature pyramid where
+            ``I = sum(h_l * w_l)``.
+        img_shapes: ``[L, 2]`` integer (height, width) per pyramid level.
+        sampling_points: ``[B, N, H, L, P, 2]`` normalized (x, y) in [0, 1];
+            (0, 0) is the top-left corner, (1, 1) the bottom-right.
+        attention_weights: ``[B, N, H, L, P]``.
+        padding_mode: "border" clamps out-of-bounds samples to the nearest
+            pixel, "zeros" zeroes them (grid_sample semantics).
+        align_corners: grid alignment, see ``torch.nn.functional.grid_sample``.
+
+    Returns:
+        ``[B, N, H, C]`` attention-weighted bilinear samples in ``img.dtype``.
+        The arithmetic runs in f32 (f64 for f64 points) whatever the storage
+        dtype.
+    """
+    _check_padding(padding_mode)
+    compute_dtype = torch.promote_types(sampling_points.dtype, torch.float32)
+    geometry = _geometry(img_shapes, sampling_points, padding_mode,
+                         align_corners, img.device)
+    out = _interpolate(img, geometry, attention_weights, compute_dtype)
     return out.to(img.dtype)
+
+
+def native_msda_backward(
+    img,
+    img_shapes,
+    sampling_points,
+    attention_weights,
+    out_grad,
+    padding_mode: str = "border",
+    align_corners: bool = False,
+):
+    """The three input gradients of the plain version for ``out_grad``.
+
+    ``torch.autograd.grad`` through the plain forward: the plain version of
+    the backward kernel K2, for the tests and ``chip_smoke.py``.  The
+    sampling geometry (corners, ``dx``, ``dy``) is the forward's, computed
+    in the points' dtype; everything after it (the gathers, the bilinear
+    sums over channels, the gradients) runs in f64, and each gradient is
+    rounded once to its input's dtype.  So the result is the exact
+    gradient of the function the forward computes.  (At Deformable DETR's
+    widths, the point gradients are sums over channels of terms as large
+    as ``level width * |out_grad * img|``, and an f32 sum of them, in any
+    order, keeps only about 5e-5 of the result.)  Returns
+    ``(img_grad, sampling_points_grad, attention_weights_grad)``.
+    """
+    _check_padding(padding_mode)
+    f64 = torch.float64
+    with torch.enable_grad():
+        pts = sampling_points.detach().requires_grad_(True)
+        img64, wts64 = (t.detach().to(f64).requires_grad_(True)
+                        for t in (img, attention_weights))
+        geometry = _geometry(img_shapes, pts, padding_mode, align_corners,
+                             img.device)
+        out = _interpolate(img64, geometry, wts64, f64)
+        grads = torch.autograd.grad(out, (img64, pts, wts64),
+                                    out_grad.to(f64))
+    return tuple(g.to(t.dtype) for g, t in
+                 zip(grads, (img, sampling_points, attention_weights)))

@@ -2,10 +2,10 @@
 
 The same seeded numpy inputs (``tests/utils.get_functional_data``: P=3,
 ragged N=130, out-of-bounds points in [-0.5, 1.5]) go through the JAX
-reference, the JAX forward kernel K1 run by the Pallas interpreter, and the
-port's plain version.  Tolerances: f32 1e-5 on the forward (both sides sum
-in f32, in different orders), 1e-4 on f32 gradients (accumulated by
-scatter-add over many points), f64 1e-8.
+reference, the JAX kernels K1 (forward) and K2 (backward) run by the Pallas
+interpreter, and the port's plain versions.  Tolerances: f32 1e-5 on the
+forward (both sides sum in f32, in different orders), 1e-4 on f32 gradients
+(accumulated by scatter-add over many points), f64 1e-8.
 """
 
 from itertools import product
@@ -18,15 +18,16 @@ jax = pytest.importorskip("jax")
 
 from msda_tpu.ops import multiscale_deformable_attention as jax_msda  # noqa: E402
 from msda_tpu.ops import native_multiscale_deformable_attention as jax_native  # noqa: E402
+from msda_tpu.ops.pallas_bwd import pallas_msda_bwd  # noqa: E402
 from msda_tpu.ops.pallas_fwd import pallas_multiscale_deformable_attention  # noqa: E402
 from msda_tpu_torch.ops import (  # noqa: E402
     compute_level_data,
     level_shapes,
     multiscale_deformable_attention,
+    native_msda_backward,
     native_multiscale_deformable_attention,
 )
-from msda_tpu_torch.ops import cuda_fwd  # noqa: E402
-from msda_tpu_torch.ops.msda import _CudaMSDA  # noqa: E402
+from msda_tpu_torch.ops import cuda_bwd, cuda_fwd  # noqa: E402
 from utils import get_functional_data  # noqa: E402
 
 MODES = list(product(["border", "zeros"], [False, True]))
@@ -68,6 +69,44 @@ def test_reference_matches_pallas_interpret(padding_mode, align_corners):
     got = native_multiscale_deformable_attention(
         ti, shapes, tp, tw, padding_mode, align_corners)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("data", [
+    dict(N=130, P=3, oob=True, seed=3),    # ragged N, P=3, out of bounds
+    dict(N=64, P=4, oob=False, seed=4),    # in bounds, N a power of two
+], ids=["ragged_oob", "in_bounds"])
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_plain_backward_matches_pallas_interpret(padding_mode, align_corners,
+                                                 data):
+    """The plain version of K2 against K2 itself, run by the Pallas
+    interpreter in exact f32 (precision="highest"); 1e-4 on all three
+    gradients."""
+    img, shapes, pts, wts, og = get_functional_data(**data)
+    want = [np.asarray(g) for g in pallas_msda_bwd(
+        img, shapes, pts, wts, og, padding_mode, align_corners,
+        precision="highest", interpret=True)]
+    got = native_msda_backward(*_torch(img), shapes, *_torch(pts, wts, og),
+                               padding_mode, align_corners)
+    for name, g, w in zip(("img", "points", "weights"), got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"{name} gradient")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_plain_backward_rounds_half_types_once(dtype):
+    """For half-precision img, the plain backward is the f32 one rounded
+    once: no gradient is accumulated in the half type."""
+    img, shapes, pts, wts, og = _data(np.float32)
+    ti, tp, tw, tog = _torch(img, pts, wts, og)
+    half = ti.to(dtype)
+    got = native_msda_backward(half, shapes, tp, tw, tog.to(dtype))
+    want = native_msda_backward(half.float(), shapes, tp, tw,
+                                tog.to(dtype).float())
+    assert [g.dtype for g in got] == [dtype, torch.float32, torch.float32]
+    assert torch.equal(got[0], want[0].to(dtype))
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -165,14 +204,11 @@ def test_validation_errors(case):
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
-    img, shapes, pts, wts, _ = _data(np.float32)
-    ti, tp, tw = _torch(img, pts, wts)
-    before = cuda_fwd.LAUNCHES
+    img, shapes, pts, wts, og = _data(np.float32)
+    ti, tp, tw, tog = _torch(img, pts, wts, og)
+    before = cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_fwd.msda_fwd(ti, shapes, tp, tw)
-    assert cuda_fwd.LAUNCHES == before
-
-
-def test_cuda_backward_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="K2"):
-        _CudaMSDA.backward(None, torch.zeros(1))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_bwd.msda_bwd(ti, shapes, tp, tw, tog)
+    assert (cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES) == before
