@@ -6,8 +6,9 @@
 Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
 
 1. Setup: print the card's name and power limit, turn TF32 off, build the
-   CUDA kernels (K1 forward, K2 backward) from ``msda_tpu_torch/csrc``, one
-   ``nvcc`` each, started together, and print the build time and each
+   CUDA kernels (K1 forward, K2 backward, and the streamed K3' forward and
+   K4' + K5' backward with their binning) from ``msda_tpu_torch/csrc``, one
+   ``nvcc`` per source, started together, and print the build time and each
    kernel's registers and spills.
 2. Kernels vs plain versions: K1 against
    ``native_multiscale_deformable_attention`` and K2 against
@@ -30,6 +31,24 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    (24 with remat) and K2 12 times; the losses must be finite and fall.
 6. Timing: K1 and K2 against their plain versions, in turns; then K1 and K2
    alone at the 256-base pyramid (I = 87,040), beyond the card's L2.
+7. The large-pyramid path (``ops/stream.py``, ``ops/cuda_stream.py``):
+   a. the binning against ``stream.sample_bins``, and K3' and K4' + K5'
+      against ``stream.plain_stream_fwd`` / ``plain_stream_bwd`` at the
+      256-base pyramid (B=4, N=10,000), a small pyramid with several bands
+      and column tiles per level (widths not multiples of 8), a ragged N
+      with out-of-bounds points and a skewed case with every point in one
+      band; f32, bf16 and f16; every padding_mode x align_corners;
+   b. the path: ``multiscale_deformable_attention(impl="auto")`` forward
+      and backward at the 256-base pyramid, which the L2 router sends to
+      the streamed kernels only (launches counted), against the plain
+      versions;
+   c. K3' against K1 and K4' + K5' against K2, in turns with the plain
+      versions, at the 256-base pyramid in f32 and bf16;
+   d. a sweep over pyramid bases 64, 128, 256 and 512 (B=4, N=10,000, f32
+      and bf16): streamed against resident kernels, and the router's
+      choice, at each size;
+   e. one ``--pyramid big`` run of ``python -m msda_tpu_torch.benchmark``
+      at N=10,000.
 
 Any failure raises, and the script exits non-zero.  The line before the
 last is a JSON summary of the kernels; the last line is
@@ -49,11 +68,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from msda_tpu_torch import benchmark  # noqa: E402
 from msda_tpu_torch.models import DeformableDetr, init_parameters, postprocess  # noqa: E402
-from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd  # noqa: E402
+from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, stream  # noqa: E402
+from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
 from msda_tpu_torch.parallel import detection_loss, make_train_step  # noqa: E402
+from msda_tpu_torch.utils import reference_workload  # noqa: E402
 
 # Deformable DETR (Zhu et al., arXiv:2010.04159 §4, App. A): an 800x1333
 # image at strides 8/16/32/64, ResNet-50 C3-C5 + one extra level.
@@ -97,12 +119,23 @@ GRAD_FLOOR = 1e-3
 MODES = [(p, a) for p in ("border", "zeros") for a in (False, True)]
 
 DEVICE = torch.device("cuda")
-KERNELS = {  # name: (module, source, TPU kernel it replaces)
+STREAM_SOURCE = "msda_tpu_torch/csrc/msda_stream.cu"
+KERNELS = {  # name: (module, source, TPU kernel(s) it replaces)
     cuda_fwd.KERNEL: (cuda_fwd, "msda_tpu_torch/csrc/msda_fwd.cu",
                       "msda_tpu/ops/pallas_fwd.py:440"),
     cuda_bwd.KERNEL: (cuda_bwd, "msda_tpu_torch/csrc/msda_bwd.cu",
                       "msda_tpu/ops/pallas_bwd.py:147"),
+    "msda_stream_fwd": (cuda_stream, STREAM_SOURCE,
+                        "msda_tpu/ops/pallas_stream.py:206"),
+    # K4 and K5 are one CUDA kernel
+    "msda_stream_bwd": (cuda_stream, STREAM_SOURCE,
+                        "msda_tpu/ops/pallas_stream.py:330 + "
+                        "msda_tpu/ops/pallas_stream.py:411"),
+    # the band selection inside K3-K5 (_band_factors)
+    "msda_stream_bin": (cuda_stream, STREAM_SOURCE,
+                        "msda_tpu/ops/pallas_stream.py:187"),
 }
+LIBRARIES = (cuda_fwd.KERNEL, cuda_bwd.KERNEL, cuda_stream.LIBRARY)
 
 
 def log(msg: str) -> None:
@@ -123,17 +156,37 @@ def setup() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build(list(KERNELS))
-    for module, _, _ in KERNELS.values():
+    _build.build(list(LIBRARIES))
+    for module in (cuda_fwd, cuda_bwd, cuda_stream):
         module.load()
-    log(f"build: {', '.join(KERNELS)} ready in "
+    log(f"build: {', '.join(LIBRARIES)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
-    # one register/spill report per template instantiation (f32, f16, bf16)
-    for name in KERNELS:
+    # one register/spill report per kernel instantiation
+    for name in LIBRARIES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     return smi
+
+
+def launches() -> dict:
+    """Every kernel's launch count."""
+    return {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
+            cuda_bwd.KERNEL: cuda_bwd.LAUNCHES, **cuda_stream.LAUNCHES}
+
+
+def reset_launches() -> None:
+    cuda_fwd.LAUNCHES = cuda_bwd.LAUNCHES = 0
+    for name in cuda_stream.LAUNCHES:
+        cuda_stream.LAUNCHES[name] = 0
+
+
+def check_path_launches(path: str, counts: dict, expected: dict) -> None:
+    """Fail unless the path launched exactly ``expected`` (and no other
+    kernel)."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{path}: launches {counts}, expected {want}")
 
 
 def op_inputs(shapes, B, N, H, C, P, seed, oob=False, out_grad=False):
@@ -389,14 +442,14 @@ def check_outputs(out, det) -> None:
 
 
 def serve(smi: str) -> dict:
-    """Phase 4: the main path.  Returns the kernel's launch count."""
+    """Phase 4: the main path.  Returns every kernel's launch count."""
     image_sizes = torch.tensor([IMAGE_HW] * BATCH, device=DEVICE)
     requests = [make_pyramid(20 + i) for i in range(3)]
     models = {"f32": build_model("auto", True),
               "bf16": build_model("auto", True, torch.bfloat16)}
     torch.cuda.synchronize()
 
-    cuda_fwd.LAUNCHES = 0
+    reset_launches()
     forwards = 0
     with torch.inference_mode():
         for name, model in models.items():
@@ -418,21 +471,24 @@ def serve(smi: str) -> dict:
                 f"{IMAGE_HW[1]}, per-request ms "
                 f"{', '.join(f'{t:.3f}' for t in times)} "
                 f"(mean {sum(times) / len(times):.3f}) on {smi}")
-    launches = cuda_fwd.LAUNCHES
-    if launches != forwards * LAUNCHES_PER_FORWARD or launches == 0:
-        raise AssertionError(f"{launches} kernel launches over {forwards} "
-                             "forwards")
-    log(f"serving: {forwards} forwards, {launches} kernel launches "
-        f"({LAUNCHES_PER_FORWARD} per forward)")
-    return launches
+    counts = launches()
+    if forwards == 0:
+        raise AssertionError("no forward was served")
+    # Deformable DETR's pyramid stays on K1 (stream.use_streaming_fwd)
+    check_path_launches("serving", counts, {
+        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD})
+    log(f"serving: {forwards} forwards, launches {counts} "
+        f"({LAUNCHES_PER_FORWARD} K1 per forward)")
+    return counts
 
 
 def train(smi: str) -> dict:
     """Phase 5: the main path of the backward.  Returns the launches of
     K1 and K2 over the training run."""
     pyramid, targets = make_pyramid(30), make_targets(31)
-    cuda_fwd.LAUNCHES = cuda_bwd.LAUNCHES = 0
+    reset_launches()
     steps = 0
+    expected = {cuda_fwd.KERNEL: 0, cuda_bwd.KERNEL: 0}
     runs = (("f32", None, False, 1 + TRAIN_STEPS),
             ("bf16", torch.bfloat16, False, 1 + TRAIN_STEPS),
             ("f32 remat", None, True, 1))
@@ -460,6 +516,8 @@ def train(smi: str) -> dict:
                         cuda_bwd.LAUNCHES - before[1])
             losses.append(loss.item())
             times.append(start.elapsed_time(end))
+            expected[cuda_fwd.KERNEL] += k1_per_step
+            expected[cuda_bwd.KERNEL] += LAUNCHES_PER_FORWARD
             log(f"train {name} step {i} ({'warm-up' if i == 0 else 'timed'})"
                 f": loss {losses[-1]:.6f} matcher_converged "
                 f"{bool(metrics['matcher_converged'])} {times[-1]:.3f} ms, "
@@ -482,10 +540,11 @@ def train(smi: str) -> dict:
             if not torch.isfinite(p).all():
                 raise AssertionError(f"{name}: a parameter is not finite")
         del model, optimizer, step
-    launches = {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
-                cuda_bwd.KERNEL: cuda_bwd.LAUNCHES}
-    log(f"training: {steps} steps, launches {launches}")
-    return launches
+    counts = launches()
+    # the pyramid stays on K1/K2 in f32 and bf16 (the L2 routers)
+    check_path_launches("training", counts, expected)
+    log(f"training: {steps} steps, launches {counts}")
+    return counts
 
 
 def time_ms(fn, iters: int) -> float:
@@ -587,29 +646,294 @@ def time_big_pyramid(smi: str) -> None:
         f" P=4, f32): K1 {fwd:.4f} ms, K2 {bwd:.4f} ms on {smi}")
 
 
+# Phase 7.  Cases for the streamed kernels: the 256-base pyramid with the
+# default plan; a small pyramid whose explicit plan cuts every level into
+# several bands (and columns), widths not multiples of 8; the reference
+# pyramid with a ragged N, out-of-bounds points and several bands; and a
+# skewed case with every point in one band of level 0 (a bin of all 40,000
+# samples of each (b, h, level), served in slices).
+STREAM_CASES = {
+    "big_pyramid": dict(shapes=BIG_SHAPES, B=4, N=10000, H=8, C=32, P=4,
+                        seed=50, plan=None),
+    "small_bands": dict(shapes=((30, 27), (15, 14), (8, 7), (4, 3)), B=2,
+                        N=3037, H=8, C=32, P=4, seed=51,
+                        plan=((4, 5), (3, 100), (2, 2), (1, 1))),
+    "ragged_oob": dict(shapes=REF_SHAPES, B=2, N=1037, H=8, C=32, P=4,
+                       seed=52, oob=True,
+                       plan=((5, 64), (4, 9), (3, 16), (8, 8))),
+    "skewed": dict(shapes=REF_SHAPES, B=1, N=10000, H=8, C=32, P=4, seed=53,
+                   skew=True, plan=((8, 64), (8, 32), (8, 16), (8, 8))),
+}
+SWEEP_BASES = (64, 128, 256, 512)
+
+
+def stream_inputs(shapes, B, N, H, C, P, seed, oob=False, skew=False,
+                  plan=None):
+    """``op_inputs`` (with out_grad); ``skew`` puts every point's y in
+    [0.40, 0.41), one band of each level."""
+    img, pts, wts, og = op_inputs(shapes, B, N, H, C, P, seed, oob=oob,
+                                  out_grad=True)
+    if skew:
+        pts[..., 1] = 0.40 + 0.01 * pts[..., 1]
+    return img, pts, wts, og
+
+
+def check_bins(name, case, pts) -> float:
+    """The binning kernels against ``stream.sample_bins``: the same count in
+    every bin, and ``order`` a permutation of the samples, bin by bin.
+    Returns the largest difference of a bin's count."""
+    shapes = case["shapes"]
+    plan = stream.check_plan(shapes, case["plan"], case["C"], torch.float32)
+    order, _, counts = cuda_stream.bin_samples(pts, shapes, plan)
+    torch.cuda.synchronize()
+    bins = stream.sample_bins(pts, shapes, plan).flatten()
+    want = torch.bincount(bins, minlength=counts.numel())
+    ok = (torch.equal(counts.long(), want)
+          and torch.equal(torch.sort(order.long()).values,
+                          torch.arange(order.numel(), device=DEVICE))
+          and torch.equal(bins[order.long()], torch.repeat_interleave(
+              torch.arange(counts.numel(), device=DEVICE), want)))
+    log(f"bins {name:12s}: {counts.numel()} bins, largest "
+        f"{int(want.max())} samples, {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the binning disagrees with sample_bins: {name}")
+    return float((counts.long() - want).abs().max())
+
+
+def check_stream_kernels() -> dict:
+    """Phase 7a; returns the largest f32 abs error of K3', K4' + K5' and
+    the binning at the 256-base pyramid."""
+    errs = dict.fromkeys(("msda_stream_fwd", "msda_stream_bwd",
+                          "msda_stream_bin"), 0.0)
+    for name, case in STREAM_CASES.items():
+        img32, pts, wts, og32 = stream_inputs(**case)
+        shapes, plan = case["shapes"], case["plan"]
+        bin_err = check_bins(name, case, pts)
+        if name == "big_pyramid":
+            errs["msda_stream_bin"] = bin_err
+        for dtype in TOL:
+            img, og = img32.to(dtype), og32.to(dtype)
+            for padding_mode, align_corners in MODES:
+                mode = (padding_mode, align_corners)
+                got = cuda_stream.msda_stream_fwd(img, shapes, pts, wts, *mode,
+                                                  plan=plan)
+                torch.cuda.synchronize()
+                want = stream.plain_stream_fwd(img, shapes, pts, wts, *mode,
+                                               plan=plan)
+                report, ok = [], True
+                pairs = [("out", got, want, TOL[dtype])]
+                del got, want
+                grads = cuda_stream.msda_stream_bwd(img, shapes, pts, wts, og,
+                                                    *mode, plan=plan)
+                torch.cuda.synchronize()
+                wants = stream.plain_stream_bwd(img, shapes, pts, wts, og,
+                                                *mode, plan=plan)
+                pairs += list(zip(("img", "points", "weights"), grads, wants,
+                                  (IMG_GRAD_TOL[dtype], POINT_GRAD_TOL,
+                                   POINT_GRAD_TOL)))
+                for what, g, w, tol in pairs:
+                    if g.shape != w.shape or g.dtype != w.dtype:
+                        raise AssertionError(
+                            f"{name}: streamed {what} {g.shape} {g.dtype}, "
+                            f"plain {w.shape} {w.dtype}")
+                    abs_err, _, mixed = errors(g, w)
+                    ok &= mixed <= tol and torch.isfinite(g).all().item()
+                    report.append(f"{what} {abs_err:.2e}/{mixed:.2e}")
+                    if name == "big_pyramid" and dtype == torch.float32:
+                        key = ("msda_stream_fwd" if what == "out"
+                               else "msda_stream_bwd")
+                        errs[key] = max(errs[key], abs_err)
+                log(f"stream {name:12s} {str(dtype)[6:]:8s} {padding_mode:6s}"
+                    f" ac={int(align_corners)}: max_abs/err "
+                    f"{'; '.join(report)} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"a streamed kernel disagrees with its plain version:"
+                        f" {name} {dtype} {padding_mode} ac={align_corners}")
+                del pairs, grads, wants
+        del img32, pts, wts, og32
+    return errs
+
+
+def large_pyramid_path(smi: str) -> dict:
+    """Phase 7b: the op at the 256-base pyramid through impl="auto", forward
+    and backward, 1 + 3 times; the router must send both to the streamed
+    kernels.  Returns every kernel's launch count over the run."""
+    img, shapes, pts, wts, og = reference_workload(
+        10000, torch.float32, BIG_SHAPES, seed=60, device=DEVICE)
+    _, _, H, C = img.shape
+    l2 = stream.l2_bytes(DEVICE)
+    routes = (stream.use_streaming_fwd(shapes, H, C, img.dtype, l2),
+              stream.use_streaming_bwd(shapes, H, C, img.dtype, l2))
+    size = stream.image_bytes(shapes, H, C, img.dtype)
+    log(f"large-pyramid path: one image's pyramid {size} bytes, L2 {l2} "
+        f"bytes; streams (fwd, bwd) {routes}")
+    steps = 4
+    times = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(steps):
+        leaves = [t.detach().requires_grad_(True) for t in (img, pts, wts)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = msda(leaves[0], shapes, *leaves[1:], benchmark.PADDING,
+                   benchmark.ALIGN, impl="auto")
+        grads = torch.autograd.grad(out, leaves, og)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    counts = launches()
+    check_path_launches("large-pyramid path", counts, {
+        "msda_stream_fwd": steps, "msda_stream_bwd": steps,
+        "msda_stream_bin": 2 * steps})
+    mode = (benchmark.PADDING, benchmark.ALIGN)
+    pairs = [("out", out.detach(), stream.plain_stream_fwd(
+        img, shapes, pts, wts, *mode), TOL[torch.float32])]
+    pairs += list(zip(("img", "points", "weights"), grads,
+                      stream.plain_stream_bwd(img, shapes, pts, wts, og,
+                                              *mode),
+                      (IMG_GRAD_TOL[torch.float32], POINT_GRAD_TOL,
+                       POINT_GRAD_TOL)))
+    report, ok = [], True
+    for what, g, w, tol in pairs:
+        abs_err, _, mixed = errors(g, w)
+        ok &= (g.shape == w.shape and mixed <= tol
+               and torch.isfinite(g).all().item())
+        report.append(f"{what} {abs_err:.2e}/{mixed:.2e}")
+    log(f"large-pyramid path (B=4, N=10000, f32, {mode[0]}, ac="
+        f"{int(mode[1])}): fwd+bwd ms {', '.join(f'{t:.3f}' for t in times)}"
+        f" (first is the warm-up); launches {counts}; vs plain max_abs/err "
+        f"{'; '.join(report)} {'ok' if ok else 'FAIL'} on {smi}")
+    if not ok:
+        raise AssertionError("the large-pyramid path disagrees with the "
+                             "plain versions")
+    return counts
+
+
+def time_stream_kernels(smi: str) -> dict:
+    """Phase 7c: at the 256-base pyramid, in turns, the plain versions, the
+    streamed kernels and K1/K2.  Returns {(kernel, dtype): (ms, plain ms)}
+    and K1/K2's times beside them."""
+    times = {}
+    img32, pts, wts, og32 = stream_inputs(BIG_SHAPES, B=4, N=10000, H=8,
+                                          C=32, P=4, seed=61)
+    for dtype in (torch.float32, torch.bfloat16):
+        img, og = img32.to(dtype), og32.to(dtype)
+        plan = stream.pyramid_plan(BIG_SHAPES, 32, dtype)
+        fwd = (lambda: stream.plain_stream_fwd(img, BIG_SHAPES, pts, wts),
+               lambda: cuda_stream.msda_stream_fwd(img, BIG_SHAPES, pts, wts),
+               lambda: cuda_fwd.msda_fwd(img, BIG_SHAPES, pts, wts))
+        bwd = (lambda: stream.plain_stream_bwd(img, BIG_SHAPES, pts, wts, og),
+               lambda: cuda_stream.msda_stream_bwd(img, BIG_SHAPES, pts, wts,
+                                                   og),
+               lambda: cuda_bwd.msda_bwd(img, BIG_SHAPES, pts, wts, og))
+        pts32 = pts.contiguous()
+        binning = (lambda: torch.sort(stream.sample_bins(pts32, BIG_SHAPES,
+                                                         plan).flatten()),
+                   lambda: cuda_stream.bin_samples(pts32, BIG_SHAPES, plan),
+                   None)
+        for name, (plain, kernel, resident) in (
+                ("msda_stream_fwd", fwd), ("msda_stream_bwd", bwd),
+                ("msda_stream_bin", binning)):
+            p1 = time_ms(plain, 3)
+            k1 = time_ms(kernel, 20)
+            r1 = time_ms(resident, 20) if resident else float("nan")
+            r2 = time_ms(resident, 20) if resident else float("nan")
+            k2 = time_ms(kernel, 20)
+            p2 = time_ms(plain, 3)
+            k, p, r = (k1 + k2) / 2, (p1 + p2) / 2, (r1 + r2) / 2
+            times[(name, dtype)] = (k, p)
+            vs = (f", {'K1' if name.endswith('fwd') else 'K2'} {r:.4f} ms "
+                  f"({r1:.4f}, {r2:.4f}), resident/streamed {r / k:.2f}x"
+                  if resident else "")
+            log(f"time {name:16s} big pyramid {str(dtype)[6:]:8s}: kernel "
+                f"{k:.4f} ms ({k1:.4f}, {k2:.4f}), plain {p:.4f} ms "
+                f"({p1:.4f}, {p2:.4f}), plain/kernel {p / k:.2f}x{vs} on "
+                f"{smi}")
+    return times
+
+
+def sweep_pyramids(smi: str) -> None:
+    """Phase 7d: streamed against resident kernels over pyramid sizes, in
+    turns (resident, streamed, streamed, resident), and the router's
+    choice at each size."""
+    for base in SWEEP_BASES:
+        shapes = tuple((base >> i, base >> i) for i in range(4))
+        for dtype in (torch.float32, torch.bfloat16):
+            img, _, pts, wts, og = reference_workload(
+                10000, dtype, shapes, seed=70, device=DEVICE)
+            H, C = img.shape[2], img.shape[3]
+            l2 = stream.l2_bytes(DEVICE)
+            routes = ("stream" if stream.use_streaming_fwd(
+                shapes, H, C, dtype, l2) else "K1",
+                "stream" if stream.use_streaming_bwd(
+                    shapes, H, C, dtype, l2) else "K2")
+            row = []
+            for resident, streamed in (
+                    (lambda: cuda_fwd.msda_fwd(img, shapes, pts, wts),
+                     lambda: cuda_stream.msda_stream_fwd(img, shapes, pts,
+                                                         wts)),
+                    (lambda: cuda_bwd.msda_bwd(img, shapes, pts, wts, og),
+                     lambda: cuda_stream.msda_stream_bwd(img, shapes, pts,
+                                                         wts, og))):
+                r1 = time_ms(resident, 10)
+                s1 = time_ms(streamed, 10)
+                s2 = time_ms(streamed, 10)
+                r2 = time_ms(resident, 10)
+                row.append(((r1 + r2) / 2, (s1 + s2) / 2))
+            (k1, k3), (k2, k45) = row
+            log(f"sweep base {base:3d} (I={img.shape[1]}, img "
+                f"{img.numel() * img.element_size() / 1e6:.1f} MB) "
+                f"{str(dtype)[6:]:8s}: fwd K1 {k1:.4f} / streamed {k3:.4f} ms"
+                f" ({k1 / k3:.2f}x), bwd K2 {k2:.4f} / streamed {k45:.4f} ms "
+                f"({k2 / k45:.2f}x); router picks {routes} on {smi}")
+            del img, pts, wts, og
+
+
+def benchmark_row(smi: str) -> None:
+    """Phase 7e: the benchmark entry point at the 256-base pyramid."""
+    rows = benchmark.main(["--pyramid", "big", "--queries", "10000",
+                           "--impls", "cuda", "reference", "--bf16",
+                           "--out", os.path.join(os.path.dirname(
+                               os.path.abspath(__file__)), "build",
+                               "benchmark_big_smoke.csv")])
+    for row in rows:
+        if not all(np.isfinite(row[k]) and row[k] > 0
+                   for k in ("fwd_ms", "fwdbwd_ms", "peak_mem_mb")):
+            raise AssertionError(f"benchmark row not finite: {row}")
+    log(f"benchmark --pyramid big: {len(rows)} rows on {smi}")
+
+
 def main() -> None:
     smi = setup()
     errs = {cuda_fwd.KERNEL: check_kernel(),
-            cuda_bwd.KERNEL: check_backward_kernel()}
+            cuda_bwd.KERNEL: check_backward_kernel(),
+            **check_stream_kernels()}
     check_model_parity()
     check_gradient_parity()
-    serving = serve(smi)
-    training = train(smi)
+    by_path = {"serve": serve(smi), "train": train(smi),
+               "large_pyramid": large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
              cuda_bwd.KERNEL: time_backward_kernel(smi)}
     time_big_pyramid(smi)
+    stream_times = time_stream_kernels(smi)
+    sweep_pyramids(smi)
+    benchmark_row(smi)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
-        ms, plain_ms = times[name][("encoder", torch.float32)]
-        by_path = {"serve": serving if name == cuda_fwd.KERNEL else 0,
-                   "train": training[name]}
+        if name in times:  # K1, K2: the encoder shape, f32
+            ms, plain_ms = times[name][("encoder", torch.float32)]
+        else:  # the streamed kernels: the 256-base pyramid, f32
+            ms, plain_ms = stream_times[(name, torch.float32)]
+        paths = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,

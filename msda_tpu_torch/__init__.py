@@ -3,8 +3,11 @@
 The same public surface as the JAX package, in PyTorch: the functional
 multiscale deformable attention op (Deformable DETR, arXiv:2010.04159), its
 plain gather-based version, and the attention module.  On an NVIDIA Hopper
-card the op's forward runs a hand-written CUDA kernel
-(``csrc/msda_fwd.cu``); on CPU tensors it runs the plain version.
+card the op runs hand-written CUDA kernels: the forward
+(``csrc/msda_fwd.cu``) and the backward (``csrc/msda_bwd.cu``), and for a
+pyramid that outgrows the card's L2 the streamed forward and backward
+(``csrc/msda_stream.cu``, routed by ``ops/stream.py``).  On CPU tensors it
+runs the plain version.
 
 Public API (the names of ``msda_tpu/__init__.py``):
     multiscale_deformable_attention        — functional op, impl dispatch

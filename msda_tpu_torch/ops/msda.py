@@ -8,7 +8,11 @@ The counterpart of ``msda_tpu/ops/msda.py``.  Implementations:
                  node that saves only its inputs (the backward
                  rematerializes the sampling) and is first-order only.  It
                  takes CUDA tensors in bf16, f16 or f32 and always computes
-                 in f32.
+                 in f32.  The forward and the backward each ask their own
+                 router (``stream.use_streaming_fwd`` / ``_bwd``, against
+                 the card's L2) and take the streamed kernels
+                 (``cuda_stream.py``) for pyramids that outgrow it, as the
+                 JAX forward and backward route to ``pallas_stream``.
     "reference": the plain gather-based version (``reference.py``); any
                  device, f64-capable, differentiable through autograd.
     "auto":      "cuda" for CUDA tensors in bf16/f16/f32, "reference" for
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import stream
 from .reference import level_shapes, native_multiscale_deformable_attention
 
 __all__ = ["multiscale_deformable_attention"]
@@ -94,31 +99,42 @@ def _resolve_impl(impl: str, img: torch.Tensor) -> str:
 
 class _CudaMSDA(torch.autograd.Function):
     """The CUDA kernels as one autograd node, the counterpart of the JAX
-    ``_msda`` custom VJP: the forward is K1 and saves only the primal
-    inputs; the backward is K2, which rematerializes the sampling.  Like
-    ``impl="pallas"``, it is first-order only."""
+    ``_msda`` custom VJP: the forward is K1 (or K3' past the L2) and saves
+    only the primal inputs; the backward is K2 (or K4' + K5'), which
+    rematerializes the sampling.  Like ``impl="pallas"``, it is first-order
+    only."""
 
     @staticmethod
     def forward(ctx, img, sampling_points, attention_weights,
                 shapes, padding_mode, align_corners):
-        from . import cuda_fwd
+        from . import cuda_fwd, cuda_stream
 
         ctx.save_for_backward(img, sampling_points, attention_weights)
         ctx.geometry = (shapes, padding_mode, align_corners)
-        return cuda_fwd.msda_fwd(img, shapes, sampling_points,
-                                 attention_weights, padding_mode,
-                                 align_corners)
+        _, _, H, C = img.shape
+        if stream.use_streaming_fwd(shapes, H, C, img.dtype,
+                                    stream.l2_bytes(img.device)):
+            fwd = cuda_stream.msda_stream_fwd
+        else:
+            fwd = cuda_fwd.msda_fwd
+        return fwd(img, shapes, sampling_points, attention_weights,
+                   padding_mode, align_corners)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, out_grad):
-        from . import cuda_bwd
+        from . import cuda_bwd, cuda_stream
 
         img, sampling_points, attention_weights = ctx.saved_tensors
         shapes, padding_mode, align_corners = ctx.geometry
-        grads = cuda_bwd.msda_bwd(img, shapes, sampling_points,
-                                  attention_weights, out_grad.contiguous(),
-                                  padding_mode, align_corners)
+        _, _, H, C = img.shape
+        if stream.use_streaming_bwd(shapes, H, C, img.dtype,
+                                    stream.l2_bytes(img.device)):
+            bwd = cuda_stream.msda_stream_bwd
+        else:
+            bwd = cuda_bwd.msda_bwd
+        grads = bwd(img, shapes, sampling_points, attention_weights,
+                    out_grad.contiguous(), padding_mode, align_corners)
         return (*grads, None, None, None)
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (K1 forward, K2 backward) against their plain
+"""The port's CUDA kernels (K1 forward, K2 backward, and the streamed K3'
+forward and K4' + K5' backward with their binning) against their plain
 versions, on the card.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them:
@@ -15,7 +16,10 @@ since both round an f32 sum once.  K2: the point and weight gradients 1e-4 in
 every dtype (both compute the point gradients exactly, with f64 channel sums,
 on the same f32 geometry; the weight gradients are f32 sums over channels, in
 different orders); img_grad f32 1e-4 (f32 atomic sums in run-dependent
-order), bf16 2e-2 and f16 2e-3 (both round an f32 sum once).
+order), bf16 2e-2 and f16 2e-3 (both round an f32 sum once).  The streamed
+kernels are held to the same tolerances against ``stream.plain_stream_fwd``
+/ ``plain_stream_bwd``, and their binning exactly against
+``stream.sample_bins``.
 """
 
 from itertools import product
@@ -30,7 +34,7 @@ from msda_tpu_torch.ops import (
     native_msda_backward,
     native_multiscale_deformable_attention,
 )
-from msda_tpu_torch.ops import cuda_bwd, cuda_fwd
+from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, stream
 from msda_tpu_torch.parallel import detection_loss
 from utils import get_functional_data
 
@@ -238,3 +242,119 @@ def test_small_model_gradients_cuda_match_reference(device):
         scale = max(want.abs().max().item(), floor)
         err = (got - want).abs().max().item() / scale
         assert err <= 1e-4, f"{name}: {err}"
+
+
+# base 12: levels 12x12, 6x6, 3x3, 1x1 (no width a multiple of 8); the plans
+# cut them into several bands and column tiles
+STREAM_CFGS = [
+    dict(N=130, P=3, base=12, plan=((3, 5), (2, 100), (1, 1), (1, 1))),
+    dict(N=37, C=48, P=9, base=12, plan=((4, 4), (2, 3), (100, 100),
+                                         (1, 1))),
+    dict(N=50, C=6, P=2, base=12, plan=None),  # one channel per lane
+]
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("cfg", range(len(STREAM_CFGS)))
+def test_stream_kernels_match_plain(device, dtype, padding_mode,
+                                    align_corners, cfg):
+    cfg = dict(STREAM_CFGS[cfg])
+    plan = cfg.pop("plan")
+    img, shapes, pts, wts, og = _inputs(device, dtype, with_grad=True, **cfg)
+    mode = (padding_mode, align_corners)
+    before = dict(cuda_stream.LAUNCHES)
+    got = cuda_stream.msda_stream_fwd(img, shapes, pts, wts, *mode,
+                                      plan=plan)
+    grads = cuda_stream.msda_stream_bwd(img, shapes, pts, wts, og, *mode,
+                                        plan=plan)
+    torch.cuda.synchronize()
+    assert cuda_stream.LAUNCHES == {
+        "msda_stream_bin": before["msda_stream_bin"] + 2,
+        "msda_stream_fwd": before["msda_stream_fwd"] + 1,
+        "msda_stream_bwd": before["msda_stream_bwd"] + 1}
+    _check(got, stream.plain_stream_fwd(img, shapes, pts, wts, *mode,
+                                        plan=plan), dtype)
+    want = stream.plain_stream_bwd(img, shapes, pts, wts, og, *mode,
+                                   plan=plan)
+    _check(grads[0], want[0], dtype, IMG_GRAD_TOL[dtype])
+    _check(grads[1], want[1], torch.float32, POINT_GRAD_TOL)
+    _check(grads[2], want[2], torch.float32, POINT_GRAD_TOL)
+
+
+def _check_bins(device, pts, shapes, plan):
+    order, starts, counts = cuda_stream.bin_samples(pts, shapes, plan)
+    bins = stream.sample_bins(pts, shapes, plan).flatten()
+    want = torch.bincount(bins, minlength=counts.numel())
+    assert torch.equal(counts.long(), want)
+    assert torch.equal(starts.long(), torch.cumsum(want, 0) - want)
+    assert torch.equal(torch.sort(order.long()).values,
+                       torch.arange(order.numel(), device=device))
+    assert torch.equal(bins[order.long()], torch.repeat_interleave(
+        torch.arange(counts.numel(), device=device), want))
+
+
+def test_stream_binning_matches_sample_bins(device):
+    _, shapes, pts, _ = _inputs(device, torch.float32, N=300, P=4, base=12)
+    _check_bins(device, pts, shapes, ((2, 5), (1, 2), (1, 1), (1, 1)))
+
+
+def test_stream_kernels_past_the_shared_histogram(device):
+    """16,384 bins per (b, h), more than a binning block counts in shared
+    memory (12,288): the binning adds to the global counts directly."""
+    img, shapes, pts, wts, og = _inputs(device, torch.float32,
+                                        with_grad=True, N=60, P=2, L=1,
+                                        base=128)
+    plan = ((1, 1),)
+    assert stream.num_bins(shapes, plan) == 128 * 128
+    _check_bins(device, pts, shapes, plan)
+    _check(cuda_stream.msda_stream_fwd(img, shapes, pts, wts, plan=plan),
+           stream.plain_stream_fwd(img, shapes, pts, wts, plan=plan),
+           torch.float32)
+    grads = cuda_stream.msda_stream_bwd(img, shapes, pts, wts, og, plan=plan)
+    want = stream.plain_stream_bwd(img, shapes, pts, wts, og, plan=plan)
+    for g, w, tol in zip(grads, want, (IMG_GRAD_TOL[torch.float32],
+                                       POINT_GRAD_TOL, POINT_GRAD_TOL)):
+        _check(g, w, torch.float32, tol)
+
+
+def test_forced_auto_launches_only_the_streamed_kernels(device):
+    img, shapes, pts, wts, og = _inputs(device, torch.float32,
+                                        with_grad=True, N=50)
+    leaves = [t.clone().requires_grad_(True) for t in (img, pts, wts)]
+    before = (cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES,
+              dict(cuda_stream.LAUNCHES))
+    with stream.forced():
+        out = multiscale_deformable_attention(leaves[0], shapes, *leaves[1:])
+        out.backward(og)
+    assert (cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES) == before[:2]
+    assert cuda_stream.LAUNCHES["msda_stream_fwd"] == (
+        before[2]["msda_stream_fwd"] + 1)
+    assert cuda_stream.LAUNCHES["msda_stream_bwd"] == (
+        before[2]["msda_stream_bwd"] + 1)
+    _check(out.detach(), native_multiscale_deformable_attention(
+        img, shapes, pts, wts), torch.float32)
+    want = native_msda_backward(img, shapes, pts, wts, og)
+    for leaf, w in zip(leaves, want):
+        _check(leaf.grad, w, torch.float32, POINT_GRAD_TOL)
+
+
+def test_stream_wrappers_reject_what_the_kernels_do_not_take(device):
+    img, shapes, pts, wts, og = _inputs(device, torch.float32,
+                                        with_grad=True, N=20)
+    before = dict(cuda_stream.LAUNCHES)
+    with pytest.raises(ValueError, match="bf16, f16 or f32"):
+        cuda_stream.msda_stream_fwd(img.double(), shapes, pts, wts)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_stream.msda_stream_fwd(
+            img.transpose(1, 2).contiguous().transpose(1, 2), shapes, pts,
+            wts)
+    with pytest.raises(ValueError, match="dtype and device"):
+        cuda_stream.msda_stream_bwd(img, shapes, pts, wts, og.half())
+    # a whole 128x128 level of 32 f32 channels is 2 MB of shared memory
+    big = torch.zeros((1, 128 * 128, 1, 32), device=device)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_stream.msda_stream_fwd(
+            big, ((128, 128),), pts[:1, :, :1, :1].contiguous(),
+            wts[:1, :, :1, :1].contiguous(), plan=[(128, 128)])
+    assert cuda_stream.LAUNCHES == before

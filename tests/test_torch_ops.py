@@ -3,12 +3,18 @@
 The same seeded numpy inputs (``tests/utils.get_functional_data``: P=3,
 ragged N=130, out-of-bounds points in [-0.5, 1.5]) go through the JAX
 reference, the JAX kernels K1 (forward) and K2 (backward) run by the Pallas
-interpreter, and the port's plain versions.  Tolerances: f32 1e-5 on the
+interpreter, the torch ``grid_sample`` oracle (``tests/oracle.py``), and the
+port's plain versions.  K6, the round-4 pipelined forward
+(``docs/experiments/exp_fwd_pipeline_r4.py``), computes K1's function; it is
+held against the port's plain forward too.  Tolerances: f32 1e-5 on the
 forward (both sides sum in f32, in different orders), 1e-4 on f32 gradients
-(accumulated by scatter-add over many points), f64 1e-8.
+(accumulated by scatter-add over many points), f64 1e-8; K6 1e-2 relative
+to the largest output, the experiment's own bound for interpret mode.
 """
 
+import importlib.util
 from itertools import product
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +34,7 @@ from msda_tpu_torch.ops import (  # noqa: E402
     native_multiscale_deformable_attention,
 )
 from msda_tpu_torch.ops import cuda_bwd, cuda_fwd  # noqa: E402
+from oracle import torch_msda_oracle  # noqa: E402
 from utils import get_functional_data  # noqa: E402
 
 MODES = list(product(["border", "zeros"], [False, True]))
@@ -55,6 +62,64 @@ def test_reference_matches_jax(dtype, padding_mode, align_corners):
     assert got.dtype == ti.dtype
     tol = FWD_TOL[dtype]
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_reference_matches_grid_sample_oracle(dtype, padding_mode,
+                                              align_corners):
+    """The port's plain forward against the independent grid_sample
+    oracle (P=3, out-of-bounds points)."""
+    img, shapes, pts, wts, _ = _data(dtype)
+    want = torch_msda_oracle(img, shapes, pts, wts, padding_mode,
+                             align_corners)
+    ti, tp, tw = _torch(img, pts, wts)
+    got = native_multiscale_deformable_attention(
+        ti, shapes, tp, tw, padding_mode, align_corners)
+    assert got.dtype == ti.dtype
+    tol = FWD_TOL[dtype]
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+
+
+def _load_pipeline_experiment():
+    path = (Path(__file__).resolve().parents[1] / "docs" / "experiments"
+            / "exp_fwd_pipeline_r4.py")
+    spec = importlib.util.spec_from_file_location("exp_fwd_pipeline_r4",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_reference_matches_k6_pipeline_interpret(padding_mode,
+                                                 align_corners):
+    """K6 (``_pipe_kernel``) through the Pallas interpreter against the
+    port's plain forward, whose kernel is K1.  ``pipe_fwd`` traces with x64
+    off, as ``pallas_fwd`` does (under x64 its ``lax.rem`` mixes int32 and
+    int64)."""
+    pipe_fwd = _load_pipeline_experiment().pipe_fwd
+    rng = np.random.default_rng(13)
+    B, H, C, P, N = 1, 2, 32, 2, 100
+    shapes = ((16, 16), (8, 8))
+    L, I = len(shapes), sum(h * w for h, w in shapes)  # noqa: E741
+    img = rng.standard_normal((B, I, H, C)).astype(np.float32)
+    pts = rng.random((B, N, H, L, P, 2)).astype(np.float32)
+    logits = rng.standard_normal((B, N, H, L * P))
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    wts = (e / e.sum(-1, keepdims=True)).reshape(B, N, H, L, P).astype(
+        np.float32)
+    with jax.enable_x64(False):
+        got = np.asarray(pipe_fwd(
+            jax.numpy.asarray(img), jax.numpy.asarray(pts),
+            jax.numpy.asarray(wts), shapes_tuple=shapes,
+            padding_mode=padding_mode, align_corners=align_corners,
+            interpret=True))
+    want = native_multiscale_deformable_attention(
+        *_torch(img), shapes, *_torch(pts, wts), padding_mode,
+        align_corners).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-2
 
 
 @pytest.mark.parametrize("padding_mode,align_corners", MODES)
