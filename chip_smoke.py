@@ -29,8 +29,11 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    one warm-up step and 5 steps on a fixed synthetic batch, in f32 and in
    bf16, then one step with remat=True.  Each step must launch K1 12 times
    (24 with remat) and K2 12 times; the losses must be finite and fall.
-6. Timing: K1 and K2 against their plain versions, in turns; then K1 and K2
-   alone at the 256-base pyramid (I = 87,040), beyond the card's L2.
+6. Timing: K1 and K2 against their plain versions, in turns, each beside
+   its bound (``utils.bench.msda_bound``: the least time the card could
+   take, from the bytes the call must move and the operations it must do,
+   with ``img`` counted in the rows the points reach); then K1 and K2 alone
+   at the 256-base pyramid (I = 87,040), beyond the card's L2.
 7. The large-pyramid path (``ops/stream.py``, ``ops/cuda_stream.py``):
    a. the binning against ``stream.sample_bins``, and K3' and K4' + K5'
       against ``stream.plain_stream_fwd`` / ``plain_stream_bwd`` at the
@@ -51,8 +54,10 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       at N=10,000.
 
 Any failure raises, and the script exits non-zero.  The line before the
-last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+last is a JSON summary of the kernels (launches on the main paths and per
+training step, error, time, plain time and bound at the encoder shape for
+K1/K2 and at the 256-base pyramid for the streamed kernels); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: 
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
 from msda_tpu_torch.parallel import detection_loss, make_train_step  # noqa: E402
-from msda_tpu_torch.utils import reference_workload  # noqa: E402
+from msda_tpu_torch.utils import (msda_bound, reference_workload,  # noqa: E402
+                                  roofline_ms, touched_rows)
 
 # Deformable DETR (Zhu et al., arXiv:2010.04159 §4, App. A): an 800x1333
 # image at strides 8/16/32/64, ResNet-50 C3-C5 + one extra level.
@@ -227,6 +233,15 @@ def errors(got, want):
     mixed = (diff / want.float().abs().clamp(min=1.0)).max().item()
     rel = (diff.max() / want.float().abs().max()).item()
     return diff.max().item(), rel, mixed
+
+
+def bound(shapes, img, pts, wts, backward: bool) -> dict:
+    """``msda_bound`` of one call on these inputs (border, align_corners
+    False: the timed mode), with img counted in the rows the points
+    reach."""
+    B, N, H, L, P, _ = pts.shape
+    return msda_bound(shapes, B, N, H, img.shape[-1], P, img.dtype,
+                      backward, touched_rows(shapes, pts, wts))
 
 
 def check_kernel() -> float:
@@ -482,12 +497,12 @@ def serve(smi: str) -> dict:
     return counts
 
 
-def train(smi: str) -> dict:
-    """Phase 5: the main path of the backward.  Returns the launches of
-    K1 and K2 over the training run."""
+def train(smi: str) -> tuple[dict, dict]:
+    """Phase 5: the main path of the backward.  Returns every kernel's
+    launches over the training run and in one f32 step (no remat)."""
     pyramid, targets = make_pyramid(30), make_targets(31)
     reset_launches()
-    steps = 0
+    steps, per_step = 0, {}
     expected = {cuda_fwd.KERNEL: 0, cuda_bwd.KERNEL: 0}
     runs = (("f32", None, False, 1 + TRAIN_STEPS),
             ("bf16", torch.bfloat16, False, 1 + TRAIN_STEPS),
@@ -504,7 +519,7 @@ def train(smi: str) -> dict:
             LAUNCHES_PER_FORWARD)
         losses, times = [], []
         for i in range(n_steps):
-            before = cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES
+            before = launches()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -512,8 +527,11 @@ def train(smi: str) -> dict:
             end.record()
             torch.cuda.synchronize()
             steps += 1
-            launched = (cuda_fwd.LAUNCHES - before[0],
-                        cuda_bwd.LAUNCHES - before[1])
+            counts = launches()
+            counts = {k: counts[k] - before[k] for k in counts}
+            launched = counts[cuda_fwd.KERNEL], counts[cuda_bwd.KERNEL]
+            if name == "f32":
+                per_step = counts
             losses.append(loss.item())
             times.append(start.elapsed_time(end))
             expected[cuda_fwd.KERNEL] += k1_per_step
@@ -543,8 +561,9 @@ def train(smi: str) -> dict:
     counts = launches()
     # the pyramid stays on K1/K2 in f32 and bf16 (the L2 routers)
     check_path_launches("training", counts, expected)
-    log(f"training: {steps} steps, launches {counts}")
-    return counts
+    log(f"training: {steps} steps, launches {counts}; per f32 step "
+        f"{per_step}")
+    return counts, per_step
 
 
 def time_ms(fn, iters: int) -> float:
@@ -583,10 +602,14 @@ def time_kernel(smi: str) -> dict:
                 k2 = time_ms(kernel, 50)
                 p2 = time_ms(plain, 5)
                 k, p = (k1 + k2) / 2, (p1 + p2) / 2
-                times[(name, dtype)] = (k, p)
+                b = bound(case["shapes"], img, pts, wts, False)
+                times[(name, dtype)] = (k, p, b)
                 log(f"time {name:18s} {str(dtype)[6:]:8s}: kernel {k:.4f} ms"
                     f" ({k1:.4f}, {k2:.4f}), plain {p:.4f} ms ({p1:.4f}, "
-                    f"{p2:.4f}), plain/kernel {p / k:.2f}x on {smi}")
+                    f"{p2:.4f}), plain/kernel {p / k:.2f}x; bound "
+                    f"{b['ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+                    f"{b['flops']} FLOP), {100 * b['ms'] / k:.1f}% of it on "
+                    f"{smi}")
             del img32, pts, wts
     return times
 
@@ -623,11 +646,14 @@ def time_backward_kernel(smi: str) -> dict:
             p2 = time_ms(plain, 3)
             a = time_ms(autograd, 3)
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
-            times[(name, dtype)] = (k, p)
+            b = bound(case["shapes"], img, pts, wts, True)
+            times[(name, dtype)] = (k, p, b)
             log(f"time K2 {name:18s} {str(dtype)[6:]:8s}: kernel {k:.4f} ms"
                 f" ({k1:.4f}, {k2:.4f}), plain {p:.4f} ms ({p1:.4f}, "
                 f"{p2:.4f}), plain/kernel {p / k:.2f}x; autograd through "
-                f"the plain forward {a:.4f} ms on {smi}")
+                f"the plain forward {a:.4f} ms; bound {b['ms']:.4f} ms "
+                f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP), "
+                f"{100 * b['ms'] / k:.1f}% of it on {smi}")
             del args, img, og
         del img32, pts, wts, og32
     return times
@@ -813,11 +839,12 @@ def large_pyramid_path(smi: str) -> dict:
 
 def time_stream_kernels(smi: str) -> dict:
     """Phase 7c: at the 256-base pyramid, in turns, the plain versions, the
-    streamed kernels and K1/K2.  Returns {(kernel, dtype): (ms, plain ms)}
-    and K1/K2's times beside them."""
+    streamed kernels and K1/K2.  Returns {(kernel, dtype): (ms, plain ms,
+    msda_bound's dict)}; K1/K2's times are logged beside them."""
     times = {}
     img32, pts, wts, og32 = stream_inputs(BIG_SHAPES, B=4, N=10000, H=8,
                                           C=32, P=4, seed=61)
+    rows = touched_rows(BIG_SHAPES, pts, wts)
     for dtype in (torch.float32, torch.bfloat16):
         img, og = img32.to(dtype), og32.to(dtype)
         plan = stream.pyramid_plan(BIG_SHAPES, 32, dtype)
@@ -833,6 +860,20 @@ def time_stream_kernels(smi: str) -> dict:
                                                          plan).flatten()),
                    lambda: cuda_stream.bin_samples(pts32, BIG_SHAPES, plan),
                    None)
+        # the binning reads the points and writes order (one int32 per
+        # sample), counts and starts (one int32 per bin each)
+        B, N, H, L, P, _ = pts.shape
+        C = img.shape[-1]
+        bins = B * H * stream.num_bins(BIG_SHAPES, plan)
+        bin_bytes = pts32.numel() * 4 + pts32.numel() // 2 * 4 + 2 * bins * 4
+        bin_ms, bin_by = roofline_ms(bin_bytes, 0)
+        bounds = {
+            "msda_stream_fwd": msda_bound(BIG_SHAPES, B, N, H, C, P, dtype,
+                                          False, rows),
+            "msda_stream_bwd": msda_bound(BIG_SHAPES, B, N, H, C, P, dtype,
+                                          True, rows),
+            "msda_stream_bin": {"ms": bin_ms, "bound_by": bin_by,
+                                "bytes": bin_bytes, "flops": 0}}
         for name, (plain, kernel, resident) in (
                 ("msda_stream_fwd", fwd), ("msda_stream_bwd", bwd),
                 ("msda_stream_bin", binning)):
@@ -843,14 +884,16 @@ def time_stream_kernels(smi: str) -> dict:
             k2 = time_ms(kernel, 20)
             p2 = time_ms(plain, 3)
             k, p, r = (k1 + k2) / 2, (p1 + p2) / 2, (r1 + r2) / 2
-            times[(name, dtype)] = (k, p)
+            b = bounds[name]
+            times[(name, dtype)] = (k, p, b)
             vs = (f", {'K1' if name.endswith('fwd') else 'K2'} {r:.4f} ms "
                   f"({r1:.4f}, {r2:.4f}), resident/streamed {r / k:.2f}x"
                   if resident else "")
             log(f"time {name:16s} big pyramid {str(dtype)[6:]:8s}: kernel "
                 f"{k:.4f} ms ({k1:.4f}, {k2:.4f}), plain {p:.4f} ms "
-                f"({p1:.4f}, {p2:.4f}), plain/kernel {p / k:.2f}x{vs} on "
-                f"{smi}")
+                f"({p1:.4f}, {p2:.4f}), plain/kernel {p / k:.2f}x{vs}; "
+                f"bound {b['ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B), "
+                f"{100 * b['ms'] / k:.1f}% of it on {smi}")
     return times
 
 
@@ -912,7 +955,9 @@ def main() -> None:
             **check_stream_kernels()}
     check_model_parity()
     check_gradient_parity()
-    by_path = {"serve": serve(smi), "train": train(smi),
+    served = serve(smi)
+    trained, per_train_step = train(smi)
+    by_path = {"serve": served, "train": trained,
                "large_pyramid": large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
              cuda_bwd.KERNEL: time_backward_kernel(smi)}
@@ -923,9 +968,9 @@ def main() -> None:
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         if name in times:  # K1, K2: the encoder shape, f32
-            ms, plain_ms = times[name][("encoder", torch.float32)]
+            ms, plain_ms, b = times[name][("encoder", torch.float32)]
         else:  # the streamed kernels: the 256-base pyramid, f32
-            ms, plain_ms = stream_times[(name, torch.float32)]
+            ms, plain_ms, b = stream_times[(name, torch.float32)]
         paths = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({
             "name": name,
@@ -934,9 +979,15 @@ def main() -> None:
             "replaces": replaces,
             "launches": sum(paths.values()),
             "launches_by_path": paths,
+            "launches_per_train_step": per_train_step[name],
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": b["ms"],
+            "bound_by": b["bound_by"],
+            # no single PyTorch call computes MSDA (grid_sample per level,
+            # then the weights, then a sum) or the binning
+            "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

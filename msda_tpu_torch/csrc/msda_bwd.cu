@@ -24,39 +24,60 @@
 // Design.  The Pallas kernel contracts G = E . out_grad^T on the MXU, reduces
 // it with 2-sparse row factors, and accumulates img_grad in VMEM across
 // sequential query blocks, because a TPU has neither gathers nor atomics.
-// None of that is carried over.  This is the gather form, with K1's layout:
-//   * one warp per (b, n, h), b slowest; lane = channel, in strides of 32;
-//   * lane k computes the geometry of point k of each chunk of 32 points and
-//     owns that point's three sums; the warp walks the chunk's points,
-//     sharing each point's corners with __shfl_sync;
-//   * per point, the warp loads the four corners' C channels (coalesced),
-//     reduces the three channel sums with a butterfly of __shfl_xor_sync
-//     (the two point-gradient sums in f64, below), and scatters its
-//     img_grad contribution with atomicAdd into an f32 buffer [B, I, H, C]
+// None of that is carried over.  This is the gather form, on lane groups
+// (msda_lanes.cuh):
+//   * a task is one (b, n, h); a group of G lanes owns it, VEC = 4 adjacent
+//     channels per lane (G = 8 at C = 32, four tasks per warp).  Tasks are
+//     numbered (b, n, h), so a warp holds heads of one query, whose
+//     img_grad adds go to different rows.  (Numbered (b, h, n), as K1's
+//     are, the warps in flight hold neighbouring queries of one head, whose
+//     adds pile onto the same rows wherever the points cluster, as a
+//     detector's do);
+//   * the group loads its out_grad slice once, then walks the task's L*P
+//     points; every lane computes the point's geometry itself, so nothing
+//     is broadcast across lanes;
+//   * per point each lane loads its channels of the four corners (one
+//     16-byte load each, 8 bytes in the half types), takes the dot
+//     products of out_grad with each corner over its channels (corner_dots:
+//     the three sums of a point are linear in them), and adds its img_grad
+//     terms with
+//     one 16-byte vector atomic per corner into an f32 buffer [B, I, H, C]
 //     that the wrapper zeroes first (and casts to img's type afterwards, for
-//     bf16 and f16).  A corner whose weight is 0 (masked in zeros mode)
-//     adds nothing and is skipped.
-// The ragged end of the query axis is a bound check on the warp index.
-// The order of the atomic adds changes from run to run, so img_grad differs
-// in its last bits between runs.
+//     bf16 and f16).  A corner whose weight is 0 (masked in zeros mode) adds
+//     nothing and is skipped;
+//   * the lane turns its four dot products into its share of the three
+//     sums (point_sums), which are reduced over the group's G lanes in
+//     log2 G butterfly steps, one warp instruction for all the warp's
+//     tasks.
+// Where C is not a multiple of 4 or img / out_grad are not aligned for the
+// vector loads, the same template runs with VEC = 1 (one channel a lane).
+// A channel count past G * VEC loops.  Groups past the ragged end of the
+// task axis compute on the last task and write nothing, so that every lane
+// takes part in the butterflies.  The order of the atomic adds changes from
+// run to run, so img_grad differs in its last bits between runs.
 //
 // Precision.  The point gradients are sums over channels of terms as large
 // as (level width) * |out_grad * img|, which cancel: at the encoder's widths
 // an f32 sum keeps only about 5e-5 of the result, whatever its order.  So
-// their terms and sums are computed in f64 (each product of two f32 values
-// is exact in f64) and rounded once.  An H100 runs f64 at half the f32
-// rate, and arithmetic does not bound this kernel; the f64 sums cost 10
-// more shuffles per point.  The geometry (dx, dy) stays the f32 geometry of
-// the forward, so the result is the gradient of the function K1 computes.
+// the dot products are summed in f64 (each product of two f32 values is
+// exact in f64), combined in f64 and rounded once.  The geometry (dx, dy)
+// stays the f32 geometry of the forward, so the result is the gradient of
+// the function K1 computes.
 //
-// What bounds it (planning arithmetic from the shapes, not a measurement):
-// at the Deformable DETR encoder shape (B=2, N=I=22,223, H=8, C=32, L=4,
-// P=4) the kernel gathers what K1 gathers (~2.9 GB of corner loads, mostly L2
-// hits) and issues as many f32 atomic adds as it loads corner values
-// (355,568 warps x 16 points x 4 corners x 32 lanes ~ 728 M, 22.8 M warp-wide
-// reductions of 128 contiguous bytes).  Those L2 atomics and the 35 shuffles
-// per point (10 to share its geometry, 25 to reduce its sums) are expected
-// to bound it, not device memory.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
+// docs/experiments/torch_kernel_ab.py, _variants.py): at the encoder shape
+// the call must move 273.1 MB in f32 and 204.8 MB in bf16, 81.5 and 61.1 us
+// at 3.35 TB/s (utils.bench.msda_bound).  The kernel takes 1.34 ms in f32
+// and 1.27 ms in bf16, 6% and 5% of its bounds, where the lane-per-channel
+// kernel it replaces took 1.78 ms (35 shuffles per point and 4-byte
+// atomics).  Without its img_grad atomics it would take 0.84 ms in f32: the
+// 2.9 GB of 16-byte adds are 38% of its time (in bf16 2-12%: what else
+// bounds it there is not measured).  Its f64 sums cost 1% (1.32 ms in
+// f32); capping its 95-97 registers at 85 spills and costs 7%.  Merging
+// the adds of a warp's coincident corners with
+// __match_any_sync cost more than it saved (3.34 against 1.19 ms in the
+// (b, h, n) order it needs).  On the model's own points, the order (b, n,
+// h) takes 1.31 ms and (b, h, n) 1.47.
 //
 // Interface: a plain C entry point (msda_bwd_launch), loaded with ctypes by
 // msda_tpu_torch/ops/cuda_bwd.py.  It launches on the given stream, does not
@@ -66,23 +87,21 @@
 #include <cstdint>
 
 #include "msda_geometry.cuh"
+#include "msda_lanes.cuh"
 
 namespace {
 
+using msda::add_grad;
+using msda::corner_dots;
+using msda::group_sum;
 using msda::LevelTable;
-using msda::to_float;
-
-template <typename F>
-__device__ __forceinline__ F warp_sum(F v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(MSDA_FULL_MASK, v, s);
-  return v;
-}
+using msda::load_vec;
+using msda::point_sums;
 
 // img, og: [B, I, H, C] and [B, N, H, C] in T; pts [B, N, H, L, P, 2] and
 // wts [B, N, H, L, P] in f32; img_grad [B, I, H, C] f32 (zeroed), pts_grad
 // and wts_grad f32 like pts and wts.  All contiguous.
-template <typename T>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(MSDA_WARPS_PER_BLOCK * 32)
     msda_bwd_kernel(const T* __restrict__ img, const float* __restrict__ pts,
                     const float* __restrict__ wts, const T* __restrict__ og,
@@ -91,127 +110,114 @@ __global__ void __launch_bounds__(MSDA_WARPS_PER_BLOCK * 32)
                     float* __restrict__ wts_grad, const LevelTable levels,
                     const int64_t num_tasks, const int I, const int N,
                     const int H, const int C, const int L, const int P,
-                    const bool zeros, const bool align_corners) {
+                    const int G, const bool zeros, const bool align_corners) {
   const int lane = threadIdx.x & 31;
-  // task = (b * N + n) * H + h, so b varies slowest over the grid
-  const int64_t task =
-      (int64_t)blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (task >= num_tasks) return;  // whole warps leave together
-
+  const int group = lane / G, c_lane = lane - group * G;
+  // the warp's first task = (b * N + n) * H + h
+  const int64_t first =
+      ((int64_t)blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5)) *
+      (32 / G);
+  if (first >= num_tasks) return;  // whole warps leave together
+  const bool valid = first + group < num_tasks;
+  const int64_t task = valid ? first + group : num_tasks - 1;
   const int h = (int)(task % H);
   const int64_t b = task / H / N;
+
   const int LP = L * P;
   const int64_t HC = (int64_t)H * C;
   const float* pt = pts + task * (int64_t)LP * 2;
   const float* wt = wts + task * (int64_t)LP;
   const T* og_row = og + task * (int64_t)C;
-  const int64_t bh = b * (int64_t)I * HC + (int64_t)h * C;
-  const T* img_bh = img + bh;
-  float* ig_bh = img_grad + bh;
+  const int64_t base = b * (int64_t)I * HC + (int64_t)h * C;
+  const T* img_bh = img + base;
+  float* ig_bh = img_grad + base;
   float* pg = pts_grad + task * (int64_t)LP * 2;
   float* wg = wts_grad + task * (int64_t)LP;
 
-  for (int k0 = 0; k0 < LP; k0 += 32) {
-    // lane k computes the geometry of point k0 + k and owns its sums
-    const int k = k0 + lane;
-    msda::Corners g = {};
-    int masks = 0;
-    float a = 0.f, xscale = 0.f, yscale = 0.f;
-    if (k < LP) {
-      const int l = k / P;
-      const int hl = levels.h[l];
-      const int wl = levels.w[l];
-      g = msda::corner_geometry(pt[2 * k], pt[2 * k + 1], hl, wl,
-                                levels.offset[l], zeros, align_corners);
-      // the four corner masks as bits: one shuffle shares them
-      masks = (g.mx0 != 0.f) | (g.mx1 != 0.f) << 1 | (g.my0 != 0.f) << 2 |
-              (g.my1 != 0.f) << 3;
-      a = wt[k];
-      xscale = (float)(align_corners ? wl - 1 : wl);
-      yscale = (float)(align_corners ? hl - 1 : hl);
-    }
-    float sum_w = 0.f;
-    double sum_x = 0.0, sum_y = 0.0;
-    const int count = min(32, LP - k0);
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      const int c = c0 + lane;
-      const bool c_ok = c < C;
-      const float o = c_ok ? to_float(og_row[c]) : 0.f;
-#pragma unroll 2
-      for (int j = 0; j < count; ++j) {
-        const int j00 = __shfl_sync(MSDA_FULL_MASK, g.i00, j);
-        const int j01 = __shfl_sync(MSDA_FULL_MASK, g.i01, j);
-        const int j10 = __shfl_sync(MSDA_FULL_MASK, g.i10, j);
-        const int j11 = __shfl_sync(MSDA_FULL_MASK, g.i11, j);
-        const float vx0 = __shfl_sync(MSDA_FULL_MASK, g.vx0, j);
-        const float vx1 = __shfl_sync(MSDA_FULL_MASK, g.vx1, j);
-        const float uy0 = __shfl_sync(MSDA_FULL_MASK, g.uy0, j);
-        const float uy1 = __shfl_sync(MSDA_FULL_MASK, g.uy1, j);
-        const int m = __shfl_sync(MSDA_FULL_MASK, masks, j);
-        const float aj = __shfl_sync(MSDA_FULL_MASK, a, j);
-        const float mx0 = (m & 1) ? 1.f : 0.f;
-        const float mx1 = (m & 2) ? 1.f : 0.f;
-        const float my0 = (m & 4) ? 1.f : 0.f;
-        const float my1 = (m & 8) ? 1.f : 0.f;
-
-        float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-        if (c_ok) {
-          v00 = to_float(img_bh[(int64_t)j00 * HC + c]);
-          v01 = to_float(img_bh[(int64_t)j01 * HC + c]);
-          v10 = to_float(img_bh[(int64_t)j10 * HC + c]);
-          v11 = to_float(img_bh[(int64_t)j11 * HC + c]);
-        }
-        const float top = vx0 * v00 + vx1 * v01;
-        const float bottom = vx0 * v10 + vx1 * v11;
-        const float sample = uy0 * top + uy1 * bottom;
-        const float rw = warp_sum(o * sample);
-        // the point gradients in f64: see the note at the top
-        const double d00 = v00, d01 = v01, d10 = v10, d11 = v11;
-        const double ddx = (double)uy0 * (mx1 * d01 - mx0 * d00) +
-                           (double)uy1 * (mx1 * d11 - mx0 * d10);
-        const double ddy = my1 * ((double)vx0 * d10 + (double)vx1 * d11) -
-                           my0 * ((double)vx0 * d00 + (double)vx1 * d01);
-        const double rx = warp_sum((double)o * ddx);
-        const double ry = warp_sum((double)o * ddy);
-        if (lane == j) {
-          sum_w += rw;
-          sum_x += rx;
-          sum_y += ry;
-        }
-
-        if (c_ok) {
-          const float ao = aj * o;
-          const float u00 = uy0 * vx0, u01 = uy0 * vx1;
-          const float u10 = uy1 * vx0, u11 = uy1 * vx1;
-          // the weights are the same in every lane: no divergence
-          if (u00 != 0.f) atomicAdd(ig_bh + (int64_t)j00 * HC + c, ao * u00);
-          if (u01 != 0.f) atomicAdd(ig_bh + (int64_t)j01 * HC + c, ao * u01);
-          if (u10 != 0.f) atomicAdd(ig_bh + (int64_t)j10 * HC + c, ao * u10);
-          if (u11 != 0.f) atomicAdd(ig_bh + (int64_t)j11 * HC + c, ao * u11);
+  const int c0 = c_lane * VEC, step = G * VEC;
+  const float4 o0 =
+      c0 < C ? load_vec<VEC>(og_row + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int l = 0; l < L; ++l) {
+    const int hl = levels.h[l], wl = levels.w[l], off = levels.offset[l];
+    const float xscale = (float)(align_corners ? wl - 1 : wl);
+    const float yscale = (float)(align_corners ? hl - 1 : hl);
+    for (int k = l * P; k < (l + 1) * P; ++k) {
+      const msda::Corners g = msda::corner_geometry(
+          pt[2 * k], pt[2 * k + 1], hl, wl, off, zeros, align_corners);
+      const float a = wt[k];
+      const T* r00 = img_bh + g.i00 * HC;
+      const T* r01 = img_bh + g.i01 * HC;
+      const T* r10 = img_bh + g.i10 * HC;
+      const T* r11 = img_bh + g.i11 * HC;
+      double dots[4] = {0.0, 0.0, 0.0, 0.0};
+      for (int c = c0; c < C; c += step) {
+        const float4 o = c == c0 ? o0 : load_vec<VEC>(og_row + c);
+        const float4 v00 = load_vec<VEC>(r00 + c);
+        const float4 v01 = load_vec<VEC>(r01 + c);
+        const float4 v10 = load_vec<VEC>(r10 + c);
+        const float4 v11 = load_vec<VEC>(r11 + c);
+        corner_dots<VEC>(o, v00, v01, v10, v11, dots);
+        if (valid) {
+          const float4 ao = make_float4(a * o.x, a * o.y, a * o.z, a * o.w);
+          add_grad<VEC>(ig_bh + g.i00 * HC + c, ao, g.uy0 * g.vx0);
+          add_grad<VEC>(ig_bh + g.i01 * HC + c, ao, g.uy0 * g.vx1);
+          add_grad<VEC>(ig_bh + g.i10 * HC + c, ao, g.uy1 * g.vx0);
+          add_grad<VEC>(ig_bh + g.i11 * HC + c, ao, g.uy1 * g.vx1);
         }
       }
-    }
-    if (k < LP) {
-      wg[k] = sum_w;
-      pg[2 * k] = (float)((double)a * xscale * sum_x);
-      pg[2 * k + 1] = (float)((double)a * yscale * sum_y);
+      float sum_w;
+      double sum_x, sum_y;
+      point_sums(dots, g.vx0, g.vx1, g.uy0, g.uy1, g.mx0, g.mx1, g.my0, g.my1,
+                 sum_w, sum_x, sum_y);
+      sum_w = group_sum(sum_w, G);
+      sum_x = group_sum(sum_x, G);
+      sum_y = group_sum(sum_y, G);
+      if (valid && c_lane == 0) {
+        wg[k] = sum_w;
+        pg[2 * k] = (float)((double)a * xscale * sum_x);
+        pg[2 * k + 1] = (float)((double)a * yscale * sum_y);
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, int VEC>
 void launch(const void* img, const void* pts, const void* wts, const void* og,
             void* img_grad, void* pts_grad, void* wts_grad,
             const LevelTable& levels, int64_t num_tasks, int64_t blocks,
-            int I, int N, int H, int C, int L, int P, bool zeros,
+            int I, int N, int H, int C, int L, int P, int G, bool zeros,
             bool align_corners, cudaStream_t stream) {
-  msda_bwd_kernel<T><<<(unsigned int)blocks, MSDA_WARPS_PER_BLOCK * 32, 0,
-                       stream>>>(
+  msda_bwd_kernel<T, VEC><<<(unsigned int)blocks, MSDA_WARPS_PER_BLOCK * 32,
+                            0, stream>>>(
       static_cast<const T*>(img), static_cast<const float*>(pts),
       static_cast<const float*>(wts), static_cast<const T*>(og),
       static_cast<float*>(img_grad), static_cast<float*>(pts_grad),
-      static_cast<float*>(wts_grad), levels, num_tasks, I, N, H, C, L, P,
+      static_cast<float*>(wts_grad), levels, num_tasks, I, N, H, C, L, P, G,
       zeros, align_corners);
+}
+
+// VEC = 4 where C and the alignment of img and out_grad allow it.
+template <typename T>
+int dispatch(const void* img, const void* pts, const void* wts,
+             const void* og, void* img_grad, void* pts_grad, void* wts_grad,
+             const LevelTable& levels, int64_t num_tasks, int I, int N, int H,
+             int C, int L, int P, bool zeros, bool align_corners,
+             cudaStream_t stream) {
+  const bool v4 = msda::vec4<T>(C, img) && msda::vec4<T>(C, og);
+  const int G = msda::group_lanes(C, v4 ? 4 : 1);
+  const int64_t per_block = (int64_t)MSDA_WARPS_PER_BLOCK * (32 / G);
+  const int64_t blocks = (num_tasks + per_block - 1) / per_block;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  if (v4) {
+    launch<T, 4>(img, pts, wts, og, img_grad, pts_grad, wts_grad, levels,
+                 num_tasks, blocks, I, N, H, C, L, P, G, zeros,
+                 align_corners, stream);
+  } else {
+    launch<T, 1>(img, pts, wts, og, img_grad, pts_grad, wts_grad, levels,
+                 num_tasks, blocks, I, N, H, C, L, P, G, zeros,
+                 align_corners, stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -236,31 +242,25 @@ int msda_bwd_launch(int dtype, const void* img, const void* pts,
   if (pixels != I) return (int)cudaErrorInvalidValue;
   const int64_t num_tasks = (int64_t)B * N * H;
   if (num_tasks == 0) return (int)cudaSuccess;
-  const int64_t blocks =
-      (num_tasks + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool z = zeros != 0;
   const bool ac = align_corners != 0;
   switch (dtype) {
     case 0:
-      launch<float>(img, pts, wts, og, img_grad, pts_grad, wts_grad, levels,
-                    num_tasks, blocks, I, N, H, C, L, P, z, ac, s);
-      break;
+      return dispatch<float>(img, pts, wts, og, img_grad, pts_grad, wts_grad,
+                             levels, num_tasks, I, N, H, C, L, P, z, ac, s);
     case 1:
-      launch<__half>(img, pts, wts, og, img_grad, pts_grad, wts_grad, levels,
-                     num_tasks, blocks, I, N, H, C, L, P, z, ac, s);
-      break;
+      return dispatch<__half>(img, pts, wts, og, img_grad, pts_grad,
+                              wts_grad, levels, num_tasks, I, N, H, C, L, P,
+                              z, ac, s);
     case 2:
-      launch<__nv_bfloat16>(img, pts, wts, og, img_grad, pts_grad, wts_grad,
-                            levels, num_tasks, blocks, I, N, H, C, L, P, z,
-                            ac, s);
-      break;
+      return dispatch<__nv_bfloat16>(img, pts, wts, og, img_grad, pts_grad,
+                                     wts_grad, levels, num_tasks, I, N, H, C,
+                                     L, P, z, ac, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -16,24 +16,34 @@
 //
 // Design.  The Pallas kernel folds the bilinear weights into dense matrices
 // and contracts them on the MXU because a TPU has no gather; none of that is
-// carried over.  This is the gather form:
-//   * one warp per (b, n, h); lane = channel, looping over channels in
-//     strides of 32 so that any C works (C = 32 at Deformable DETR's width);
-//   * the lanes load the warp's L*P points and weights cooperatively (lane k
-//     takes point k), compute each point's four corner indices and weights,
-//     and share them with __shfl_sync;
-//   * each point then costs four coalesced loads of C contiguous elements;
-//   * warps are numbered with b slowest, so that the blocks in flight work on
-//     one image's pyramid, which stays in the 50 MB L2.
-// The ragged end of the query axis is a bound check on the warp index.
+// carried over.  This is the gather form, on lane groups (msda_lanes.cuh):
+//   * a task is one (b, n, h); a group of G lanes owns it, VEC = 4 adjacent
+//     channels per lane (G = 8 at C = 32, four tasks per warp);
+//   * tasks are numbered (b, h, n): the groups of a warp and the warps of a
+//     block take neighbouring queries of one head, so a block's loads of
+//     that head's coarse levels hit L1, and the blocks in flight work on
+//     one image's pyramid, which stays in the 50 MB L2;
+//   * every lane computes each point's geometry itself (no broadcast), loads
+//     its channels of the four corners with one 16-byte load each (8 bytes
+//     in the half types) and accumulates in f32; the output is one vector
+//     store per lane.
+// Where C is not a multiple of 4 or img is not aligned for the vector loads,
+// the same template runs with VEC = 1 (one channel a lane).  A channel count
+// past G * VEC loops.  The ragged end of the task axis is a bound check on
+// the group's task.
 //
-// What bounds it (planning arithmetic from the shapes, not a measurement):
-// at the Deformable DETR encoder shape (B=2, N=I=22,223, H=8, C=32, L=4,
-// P=4) in f32 the compulsory device-memory traffic is about 160 MB (img
-// 45.5, points 45.5, weights 22.8, out 45.5 MB), about 50 us at 3.35 TB/s.
-// The gathered corner traffic is 355,568 warps x 16 points x 4 corners x
-// 128 B ~ 2.9 GB, mostly L2 hits.  So the kernel is bound by L2 bandwidth
-// and load latency rather than by device memory.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
+// docs/experiments/torch_kernel_ab.py, _variants.py): at Deformable DETR's
+// encoder shape (B=2, N=I=22,223, H=8, C=32, L=4, P=4) the call must move
+// 159.3 MB in f32 (img, points, weights, out), 47.6 us at 3.35 TB/s
+// (utils.bench.msda_bound).
+// The kernel takes 0.29 ms in f32 and 0.27 ms in bf16: 16% and 13% of that
+// bound.  Its ~2.9 GB of corner loads are mostly L1 and L2 hits, and forcing
+// every corner onto one pixel saves at most 12%, so L2 bandwidth does not
+// bound it; what is left is the latency of two dependent loads per point
+// (its coordinates, then its corners) at 32 warps an SM (64 registers).
+// The lane-per-channel kernel it replaces took 0.48 ms: 8 shuffles per
+// point to broadcast the geometry, and 4-byte loads.
 //
 // Interface: a plain C entry point (msda_fwd_launch), loaded with ctypes by
 // msda_tpu_torch/ops/cuda_fwd.py.  It launches on the given stream, does not
@@ -43,31 +53,36 @@
 #include <cstdint>
 
 #include "msda_geometry.cuh"
+#include "msda_lanes.cuh"
 
 namespace {
 
 using msda::LevelTable;
-using msda::from_float;
-using msda::to_float;
+using msda::load_vec;
+using msda::store_vec;
 
 // pts: [B, N, H, L, P, 2] f32, wts: [B, N, H, L, P] f32,
 // img: [B, I, H, C] T, out: [B, N, H, C] T; all contiguous.
-template <typename T>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(MSDA_WARPS_PER_BLOCK * 32)
     msda_fwd_kernel(const T* __restrict__ img, const float* __restrict__ pts,
                     const float* __restrict__ wts, T* __restrict__ out,
                     const LevelTable levels, const int64_t num_tasks,
                     const int I, const int N, const int H, const int C,
-                    const int L, const int P, const bool zeros,
+                    const int L, const int P, const int G, const bool zeros,
                     const bool align_corners) {
   const int lane = threadIdx.x & 31;
-  // task = (b * N + n) * H + h, so b varies slowest over the grid
-  const int64_t task =
-      (int64_t)blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (task >= num_tasks) return;  // whole warps leave together
+  const int group = lane / G, c_lane = lane - group * G;
+  // the group's task, in (b, h, n) order
+  const int64_t t =
+      ((int64_t)blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5)) *
+          (32 / G) + group;
+  if (t >= num_tasks) return;
+  const int64_t bh = t / N;  // b * H + h
+  const int h = (int)(bh % H);
+  const int64_t b = bh / H;
+  const int64_t task = (b * N + (t - bh * N)) * H + h;  // (b, n, h) row
 
-  const int h = (int)(task % H);
-  const int64_t b = task / H / N;
   const int LP = L * P;
   const int64_t HC = (int64_t)H * C;
   const float* pt = pts + task * (int64_t)LP * 2;
@@ -75,64 +90,62 @@ __global__ void __launch_bounds__(MSDA_WARPS_PER_BLOCK * 32)
   const T* img_bh = img + b * (int64_t)I * HC + (int64_t)h * C;
   T* out_row = out + task * (int64_t)C;
 
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + lane;
-    const bool c_ok = c < C;
-    float acc = 0.f;
-    for (int k0 = 0; k0 < LP; k0 += 32) {
-      // lane k computes the geometry of point k0 + k
-      const int k = k0 + lane;
-      int i00 = 0, i01 = 0, i10 = 0, i11 = 0;
-      float w00 = 0.f, w01 = 0.f, w10 = 0.f, w11 = 0.f;
-      if (k < LP) {
-        const int l = k / P;
-        const msda::Corners g = msda::corner_geometry(
-            pt[2 * k], pt[2 * k + 1], levels.h[l], levels.w[l],
-            levels.offset[l], zeros, align_corners);
-        const float a = wt[k];
-        i00 = g.i00;
-        i01 = g.i01;
-        i10 = g.i10;
-        i11 = g.i11;
-        w00 = a * g.uy0 * g.vx0;
-        w01 = a * g.uy0 * g.vx1;
-        w10 = a * g.uy1 * g.vx0;
-        w11 = a * g.uy1 * g.vx1;
-      }
-      const int count = min(32, LP - k0);
+  for (int c = c_lane * VEC; c < C; c += G * VEC) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int l = 0; l < L; ++l) {
+      const int hl = levels.h[l], wl = levels.w[l], off = levels.offset[l];
 #pragma unroll 4
-      for (int j = 0; j < count; ++j) {
-        const int j00 = __shfl_sync(MSDA_FULL_MASK, i00, j);
-        const int j01 = __shfl_sync(MSDA_FULL_MASK, i01, j);
-        const int j10 = __shfl_sync(MSDA_FULL_MASK, i10, j);
-        const int j11 = __shfl_sync(MSDA_FULL_MASK, i11, j);
-        const float u00 = __shfl_sync(MSDA_FULL_MASK, w00, j);
-        const float u01 = __shfl_sync(MSDA_FULL_MASK, w01, j);
-        const float u10 = __shfl_sync(MSDA_FULL_MASK, w10, j);
-        const float u11 = __shfl_sync(MSDA_FULL_MASK, w11, j);
-        if (c_ok) {
-          const float v00 = to_float(img_bh[(int64_t)j00 * HC + c]);
-          const float v01 = to_float(img_bh[(int64_t)j01 * HC + c]);
-          const float v10 = to_float(img_bh[(int64_t)j10 * HC + c]);
-          const float v11 = to_float(img_bh[(int64_t)j11 * HC + c]);
-          acc += u00 * v00 + u01 * v01 + u10 * v10 + u11 * v11;
-        }
+      for (int k = l * P; k < (l + 1) * P; ++k) {
+        const msda::Corners g = msda::corner_geometry(
+            pt[2 * k], pt[2 * k + 1], hl, wl, off, zeros, align_corners);
+        const float a = wt[k];
+        const float w00 = a * g.uy0 * g.vx0, w01 = a * g.uy0 * g.vx1;
+        const float w10 = a * g.uy1 * g.vx0, w11 = a * g.uy1 * g.vx1;
+        const float4 v00 = load_vec<VEC>(img_bh + g.i00 * HC + c);
+        const float4 v01 = load_vec<VEC>(img_bh + g.i01 * HC + c);
+        const float4 v10 = load_vec<VEC>(img_bh + g.i10 * HC + c);
+        const float4 v11 = load_vec<VEC>(img_bh + g.i11 * HC + c);
+        acc.x += w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x;
+        acc.y += w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y;
+        acc.z += w00 * v00.z + w01 * v01.z + w10 * v10.z + w11 * v11.z;
+        acc.w += w00 * v00.w + w01 * v01.w + w10 * v10.w + w11 * v11.w;
       }
     }
-    if (c_ok) out_row[c] = from_float<T>(acc);
+    store_vec<VEC>(out_row + c, acc);
   }
 }
 
-template <typename T>
+template <typename T, int VEC>
 void launch(const void* img, const void* pts, const void* wts, void* out,
             const LevelTable& levels, int64_t num_tasks, int64_t blocks,
-            int I, int N, int H, int C, int L, int P, bool zeros,
+            int I, int N, int H, int C, int L, int P, int G, bool zeros,
             bool align_corners, cudaStream_t stream) {
-  msda_fwd_kernel<T><<<(unsigned int)blocks, MSDA_WARPS_PER_BLOCK * 32, 0,
-                       stream>>>(
+  msda_fwd_kernel<T, VEC><<<(unsigned int)blocks, MSDA_WARPS_PER_BLOCK * 32,
+                            0, stream>>>(
       static_cast<const T*>(img), static_cast<const float*>(pts),
       static_cast<const float*>(wts), static_cast<T*>(out), levels, num_tasks,
-      I, N, H, C, L, P, zeros, align_corners);
+      I, N, H, C, L, P, G, zeros, align_corners);
+}
+
+// VEC = 4 where C and img's alignment allow it (out is the wrapper's own).
+template <typename T>
+int dispatch(const void* img, const void* pts, const void* wts, void* out,
+             const LevelTable& levels, int64_t num_tasks, int I, int N,
+             int H, int C, int L, int P, bool zeros, bool align_corners,
+             cudaStream_t stream) {
+  const bool v4 = msda::vec4<T>(C, img);
+  const int G = msda::group_lanes(C, v4 ? 4 : 1);
+  const int64_t per_block = (int64_t)MSDA_WARPS_PER_BLOCK * (32 / G);
+  const int64_t blocks = (num_tasks + per_block - 1) / per_block;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  if (v4) {
+    launch<T, 4>(img, pts, wts, out, levels, num_tasks, blocks, I, N, H, C,
+                 L, P, G, zeros, align_corners, stream);
+  } else {
+    launch<T, 1>(img, pts, wts, out, levels, num_tasks, blocks, I, N, H, C,
+                 L, P, G, zeros, align_corners, stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -155,30 +168,23 @@ int msda_fwd_launch(int dtype, const void* img, const void* pts,
   if (pixels != I) return (int)cudaErrorInvalidValue;
   const int64_t num_tasks = (int64_t)B * N * H;
   if (num_tasks == 0) return (int)cudaSuccess;
-  const int64_t blocks =
-      (num_tasks + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool z = zeros != 0;
   const bool ac = align_corners != 0;
   switch (dtype) {
     case 0:
-      launch<float>(img, pts, wts, out, levels, num_tasks, blocks, I, N, H, C,
-                    L, P, z, ac, s);
-      break;
+      return dispatch<float>(img, pts, wts, out, levels, num_tasks, I, N, H,
+                             C, L, P, z, ac, s);
     case 1:
-      launch<__half>(img, pts, wts, out, levels, num_tasks, blocks, I, N, H,
-                     C, L, P, z, ac, s);
-      break;
+      return dispatch<__half>(img, pts, wts, out, levels, num_tasks, I, N, H,
+                              C, L, P, z, ac, s);
     case 2:
-      launch<__nv_bfloat16>(img, pts, wts, out, levels, num_tasks, blocks, I,
-                            N, H, C, L, P, z, ac, s);
-      break;
+      return dispatch<__nv_bfloat16>(img, pts, wts, out, levels, num_tasks,
+                                     I, N, H, C, L, P, z, ac, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -38,7 +38,8 @@
 // the slice's samples 32 at a time: lane k loads sample k's index, point and
 // weight and computes its tile-local corners, and the warp walks the 32 with
 // __shfl_sync, a group of G lanes per sample, 4 channels per lane (C a
-// multiple of 4; G = 8 at C = 32, four samples per step).
+// multiple of 4; G = 8 at C = 32, four samples per step), with the
+// lane-group helpers K1 and K2 share (msda_lanes.cuh).
 //
 // K3' (msda_stream_fwd_kernel): each group adds a * bilerp of its sample
 // into an f32 out buffer [B, N, H, C] with sm_90's 16-byte vector atomics (a
@@ -47,9 +48,10 @@
 //
 // K4' + K5' (msda_stream_bwd_kernel): per sample, with g = out_grad[b, n,
 // h, :], a group computes over its channels
-//   * wts_grad = sum_c g[c] sample[c] (f32);
-//   * the two point-gradient sums in f64, as K2 does (msda_bwd.cu "Precision"),
-//     times a and the level's scale (w or w - 1, h or h - 1);
+//   * wts_grad = sum_c g[c] sample[c] and the two point-gradient sums, times
+//     a and the level's scale (w or w - 1, h or h - 1), from the dot
+//     products of g with the four corners in f64, as K2 does (msda_lanes.cuh
+//     corner_dots and point_sums; msda_bwd.cu "Precision");
 //   * the four corners' img_grad terms a * g[c] * (lerp weight), added with
 //     16-byte vector atomics into an f32 buffer [B, I, H, C] that the wrapper
 //     zeroes and casts once.
@@ -82,6 +84,7 @@
 #include <cstdint>
 
 #include "msda_geometry.cuh"
+#include "msda_lanes.cuh"
 
 #define STREAM_THREADS 512
 #define STREAM_WARPS (STREAM_THREADS / 32)
@@ -92,8 +95,14 @@
 
 namespace {
 
+using msda::add_grad;
+using msda::corner_dots;
+using msda::group_lanes;
+using msda::group_sum;
 using msda::LevelTable;
-using msda::to_float;
+using msda::load_vec;
+using msda::point_sums;
+using msda::vec16;
 
 // The plan's tiles: per level the band rows, tile columns, tiles per band,
 // and the first bin of the level within one (b, h).
@@ -289,26 +298,6 @@ __device__ __forceinline__ TileCorners tile_corners(const float x,
   return tc;
 }
 
-// Four channels from shared or global memory, as floats (p 16-byte aligned
-// for float, 8-byte for the half types).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __half* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 // The work of one block: a slice of at most `slice` samples of one bin.
 // slices[bin] is the bin's first block (the exclusive sum of
 // ceil(count / slice) over the bins before it); the grid may hold more
@@ -404,17 +393,6 @@ __device__ __forceinline__ Preload preload(const int* __restrict__ bin,
   return p;
 }
 
-// One lane's share of a sample's channels: VEC = 4 adjacent channels per
-// step (C a multiple of 4) or 1.
-template <int VEC, typename T>
-__device__ __forceinline__ float4 load_vec(const T* p) {
-  if constexpr (VEC == 4) {
-    return load4(p);
-  } else {
-    return make_float4(to_float(*p), 0.f, 0.f, 0.f);
-  }
-}
-
 // img: [B, I, H, C] T; pts [B, N, H, L, P, 2] and wts [B, N, H, L, P] f32;
 // order, starts, counts: the bins; slices: their first blocks; out
 // [B, N, H, C] f32, zeroed.
@@ -487,52 +465,6 @@ __global__ void __launch_bounds__(STREAM_THREADS)
   }
 }
 
-template <typename F>
-__device__ __forceinline__ F group_sum(F v, const int G) {
-  for (int s = G >> 1; s > 0; s >>= 1) {
-    v += __shfl_xor_sync(MSDA_FULL_MASK, v, s);
-  }
-  return v;
-}
-
-// The backward's three channel sums over one lane's VEC channels.
-template <int VEC>
-__device__ __forceinline__ void bwd_sums(
-    const float4& o, const float4& v00, const float4& v01, const float4& v10,
-    const float4& v11, const float vx0, const float vx1, const float uy0,
-    const float uy1, const float mx0, const float mx1, const float my0,
-    const float my1, float& sum_w, double& sum_x, double& sum_y) {
-  const float* og = &o.x;
-  const float* a00 = &v00.x;
-  const float* a01 = &v01.x;
-  const float* a10 = &v10.x;
-  const float* a11 = &v11.x;
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    sum_w += og[k] * (uy0 * (vx0 * a00[k] + vx1 * a01[k]) +
-                      uy1 * (vx0 * a10[k] + vx1 * a11[k]));
-    // the point gradients in f64: see msda_bwd.cu "Precision"
-    const double d00 = a00[k], d01 = a01[k], d10 = a10[k], d11 = a11[k];
-    sum_x += (double)og[k] * ((double)uy0 * (mx1 * d01 - mx0 * d00) +
-                              (double)uy1 * (mx1 * d11 - mx0 * d10));
-    sum_y += (double)og[k] * (my1 * ((double)vx0 * d10 + (double)vx1 * d11) -
-                              my0 * ((double)vx0 * d00 + (double)vx1 * d01));
-  }
-}
-
-// Adds w * ao to VEC channels of img_grad (a 16-byte vector atomic for 4).
-template <int VEC>
-__device__ __forceinline__ void add_grad(float* p, const float4& ao,
-                                         const float w) {
-  if (w == 0.f) return;  // a corner masked in zeros mode adds nothing
-  if constexpr (VEC == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(w * ao.x, w * ao.y, w * ao.z, w * ao.w));
-  } else {
-    atomicAdd(p, w * ao.x);
-  }
-}
-
 // As the forward, plus og [B, N, H, C] T; img_grad [B, I, H, C] f32 (zeroed),
 // pts_grad [B, N, H, L, P, 2] and wts_grad [B, N, H, L, P] f32.
 template <typename T, int VEC>
@@ -602,22 +534,24 @@ __global__ void __launch_bounds__(STREAM_THREADS)
       const float mx0 = (m & 1) ? 1.f : 0.f, mx1 = (m & 2) ? 1.f : 0.f;
       const float my0 = (m & 4) ? 1.f : 0.f, my1 = (m & 8) ? 1.f : 0.f;
       const T* og_row = og + (int64_t)(s / LP) * C;
-      float sum_w = 0.f;
-      double sum_x = 0.0, sum_y = 0.0;
+      double dots[4] = {0.0, 0.0, 0.0, 0.0};
       for (int c = c_lane * VEC; valid && c < C; c += G * VEC) {
         const float4 o = load_vec<VEC>(og_row + c);
         const float4 v00 = load_vec<VEC>(tile + q00 + c);
         const float4 v01 = load_vec<VEC>(tile + q01 + c);
         const float4 v10 = load_vec<VEC>(tile + q10 + c);
         const float4 v11 = load_vec<VEC>(tile + q11 + c);
-        bwd_sums<VEC>(o, v00, v01, v10, v11, vx0, vx1, uy0, uy1, mx0, mx1,
-                      my0, my1, sum_w, sum_x, sum_y);
+        corner_dots<VEC>(o, v00, v01, v10, v11, dots);
         const float4 ao = make_float4(a * o.x, a * o.y, a * o.z, a * o.w);
         add_grad<VEC>(grad_level + i00 * HC + c, ao, uy0 * vx0);
         add_grad<VEC>(grad_level + i01 * HC + c, ao, uy0 * vx1);
         add_grad<VEC>(grad_level + i10 * HC + c, ao, uy1 * vx0);
         add_grad<VEC>(grad_level + i11 * HC + c, ao, uy1 * vx1);
       }
+      float sum_w;
+      double sum_x, sum_y;
+      point_sums(dots, vx0, vx1, uy0, uy1, mx0, mx1, my0, my1, sum_w, sum_x,
+                 sum_y);
       sum_w = group_sum(sum_w, G);
       sum_x = group_sum(sum_x, G);
       sum_y = group_sum(sum_y, G);
@@ -628,22 +562,6 @@ __global__ void __launch_bounds__(STREAM_THREADS)
       }
     }
   }
-}
-
-// Lanes per sample: the sample's C / vec steps rounded up to a power of two,
-// at most a warp.
-int group_lanes(int C, int vec) {
-  int g = 1;
-  while (g * vec < C && g < 32) g <<= 1;
-  return g;
-}
-
-// 16-byte copies for the staging: a pixel's channels are whole 16-byte
-// pieces and img is 16-byte aligned.
-template <typename T>
-bool vec16(const void* img, int C) {
-  return (C * sizeof(T)) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(img) % 16 == 0;
 }
 
 // What every streamed launch takes besides the tensors.
@@ -707,12 +625,6 @@ int launch_bwd(const void* img, const void* pts, const void* wts,
   return (int)cudaGetLastError();
 }
 
-// Four channels a step where C allows it and out_grad's rows are aligned
-// for it (img's tile is, and out and img_grad are the wrapper's own).
-bool vec4(int C, const void* og) {
-  return C % 4 == 0 && reinterpret_cast<uintptr_t>(og) % 16 == 0;
-}
-
 template <typename T>
 int dispatch_fwd(const void* img, const void* pts, const void* wts,
                  const void* order, const void* starts, const void* counts,
@@ -729,7 +641,9 @@ int dispatch_bwd(const void* img, const void* pts, const void* wts,
                  const void* og, const void* order, const void* starts,
                  const void* counts, const void* slices, void* img_grad,
                  void* pts_grad, void* wts_grad, const Launch& g) {
-  return vec4(g.C, og)
+  // four channels a step where C allows it and out_grad's rows are aligned
+  // for it (img's tile is, and img_grad is the wrapper's own)
+  return msda::vec4<T>(g.C, og)
              ? launch_bwd<T, 4>(img, pts, wts, og, order, starts, counts,
                                 slices, img_grad, pts_grad, wts_grad, g)
              : launch_bwd<T, 1>(img, pts, wts, og, order, starts, counts,

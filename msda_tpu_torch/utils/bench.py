@@ -3,7 +3,9 @@
 ``reference_workload`` builds the benchmark's inputs from a numpy seed, so
 the same tensors reach the CPU tests and the card; ``timeit_op`` times an op
 on the device it runs on; ``device_memory_stats`` reads the CUDA caching
-allocator's counters.
+allocator's counters.  ``msda_bound`` is the least time an H100 could take
+for one MSDA call (the kernels' roofline), from its shapes and, where the
+data decides it, ``touched_rows``.
 """
 
 from __future__ import annotations
@@ -15,11 +17,109 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..ops.reference import _geometry, level_shapes
+
 __all__ = ["timeit_op", "device_memory_stats", "reference_workload",
-           "REFERENCE_SHAPES"]
+           "REFERENCE_SHAPES", "roofline_ms", "msda_bound", "touched_rows",
+           "H100_BYTES_PER_S", "H100_F32_FLOPS"]
 
 #: the reference benchmark pyramid (msda-triton's scripts/benchmark.py)
 REFERENCE_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
+
+#: published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): device
+#: memory bytes per second and f32 operations per second outside the tensor
+#: cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOPS = 67e12
+# f32 operations per (sampling point, channel) and per sampling point,
+# counting a multiply-add as 2.  Per point, both ways: the geometry and
+# the four corner weights times the attention weight (18).  Per channel,
+# the forward: four corner multiply-adds (8).  The backward: the dot
+# products of out_grad with the four corners (4 multiply-adds, 8), of
+# which the point's three sums are linear combinations, and the four
+# img_grad terms (4 products of a scaled corner weight with out_grad, 4
+# adds: 8); per point besides, the three sums from the four dot products
+# (21) and the two scaled point gradients (4)
+FWD_FLOPS_PER_CHANNEL, FWD_FLOPS_PER_POINT = 8, 18
+BWD_FLOPS_PER_CHANNEL, BWD_FLOPS_PER_POINT = 16, 18 + 21 + 4
+
+
+def roofline_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms for ``nbytes`` of device memory traffic and
+    ``flops`` f32 operations at the H100's published peaks, and which of
+    the two bounds it: ``(ms, "bytes" or "operations")``."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_flops = flops / H100_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (
+        t_flops, "operations")
+
+
+def msda_bound(shapes, B: int, N: int, H: int, C: int, P: int,
+               dtype=torch.float32, backward: bool = False,
+               img_rows: int | None = None) -> dict:
+    """The compulsory work of one MSDA forward (K1) or backward (K2) call
+    and the least time an H100 could take for it.
+
+    ``img`` ``[B, I, H, C]`` and ``out`` / ``out_grad`` / ``img_grad`` are
+    in ``dtype``; the points ``[B, N, H, L, P, 2]``, the weights and their
+    gradients in f32 (the kernels' types).  Each input byte is counted read
+    once and each output byte written once: ``img`` only in the
+    ``img_rows`` pixel rows (one pixel of one (b, h)) that the points reach
+    (``touched_rows``; every row when None), ``img_grad`` whole.  The
+    operations are counted at the f32 rate (``FWD_FLOPS_*``,
+    ``BWD_FLOPS_*``): the kernels' f64 point-gradient sums are a choice of
+    precision, not part of the function's arithmetic.
+
+    Returns ``{"bytes", "flops", "ms", "bound_by"}``.
+    """
+    shapes = level_shapes(shapes)
+    L = len(shapes)
+    I = sum(h * w for h, w in shapes)  # noqa: E741
+    item = torch.empty((), dtype=dtype).element_size()
+    rows = B * I * H if img_rows is None else img_rows
+    points = B * N * H * L * P
+    img = rows * C * item
+    pts, wts = points * 2 * 4, points * 4
+    queries = B * N * H * C * item
+    if backward:
+        nbytes = img + pts + wts + queries + B * I * H * C * item + pts + wts
+        flops = points * (C * BWD_FLOPS_PER_CHANNEL + BWD_FLOPS_PER_POINT)
+    else:
+        nbytes = img + pts + wts + queries
+        flops = points * (C * FWD_FLOPS_PER_CHANNEL + FWD_FLOPS_PER_POINT)
+    ms, bound_by = roofline_ms(nbytes, flops)
+    return {"bytes": nbytes, "flops": flops, "ms": ms, "bound_by": bound_by}
+
+
+def touched_rows(img_shapes, sampling_points, attention_weights,
+                 padding_mode: str = "border",
+                 align_corners: bool = False) -> int:
+    """The number of pixel rows of ``img`` (one pixel of one (b, h)) on
+    which the MSDA result depends: the corners of every point whose
+    bilinear weight, times the point's attention weight, is not zero.
+    Plain PyTorch, on the points' device."""
+    corners, dx, dy, masks = _geometry(img_shapes, sampling_points,
+                                       padding_mode, align_corners,
+                                       sampling_points.device)
+    dx, dy = dx[..., 0], dy[..., 0]
+    B, _, H = corners[0].shape[:3]
+    I = sum(h * w for h, w in level_shapes(img_shapes))  # noqa: E741
+    if masks is None:
+        masks = (torch.ones((), dtype=torch.bool,
+                            device=sampling_points.device),) * 4
+    else:
+        masks = tuple(m[..., 0] for m in masks)
+    my0, mx0, my1, mx1 = masks
+    lerp = ((my0 & mx0, (1 - dy) * (1 - dx)), (my0 & mx1, (1 - dy) * dx),
+            (my1 & mx0, dy * (1 - dx)), (my1 & mx1, dy * dx))
+    dev = sampling_points.device
+    b = torch.arange(B, device=dev).view(B, 1, 1, 1, 1)
+    h = torch.arange(H, device=dev).view(1, 1, H, 1, 1)
+    keys = []
+    for idx, (mask, w) in zip(corners, lerp):
+        need = mask & (w * attention_weights != 0)
+        keys.append(((b * I + idx) * H + h)[need])
+    return int(torch.unique(torch.cat(keys)).numel())
 
 
 def reference_workload(num_queries=10000, dtype=torch.float32, shapes=None,

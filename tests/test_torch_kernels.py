@@ -20,6 +20,13 @@ order), bf16 2e-2 and f16 2e-3 (both round an f32 sum once).  The streamed
 kernels are held to the same tolerances against ``stream.plain_stream_fwd``
 / ``plain_stream_bwd``, and their binning exactly against
 ``stream.sample_bins``.
+
+K1 and K2 serve a task with a group of lanes, 4 channels a lane where C and
+the alignment allow it and 1 otherwise: the cases cover both (C = 30 and 6
+take one channel a lane, as do img and out_grad views that start off a
+16-byte boundary), groups of 8, 16 and 32 lanes (C = 32, 48, 128), L*P
+that does not divide among a warp's tasks, and every query of a head on
+the same pixels (the img_grad adds of whole warps on one row).
 """
 
 from itertools import product
@@ -45,9 +52,15 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 IMG_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
                 torch.float16: 2e-3}
 POINT_GRAD_TOL = 1e-4
+# The lane-group kernels serve a task with G lanes of 4 channels (1 where C
+# or the alignment does not allow 4), 32 / G tasks per warp.
 CFGS = [
-    dict(N=130, P=3),          # ragged N, P not a power of two
-    dict(N=37, C=48, P=9),     # C past one warp, L*P = 36 past one warp
+    dict(N=130, P=3),          # ragged N, P not a power of two; G = 8
+    dict(N=37, C=48, P=9),     # G * 4 = 64 past C; L*P = 36 past one warp
+    dict(N=29, P=9),           # P crossing the 4 tasks of a warp
+    dict(N=41, C=30, P=4),     # C not a multiple of 4: one channel a lane
+    dict(N=50, C=6, P=2),      # one channel a lane, G = 8
+    dict(N=23, C=128, P=3),    # G = 32: one task per warp
 ]
 
 
@@ -119,6 +132,54 @@ def test_backward_kernel_matches_plain(device, dtype, padding_mode,
     assert cuda_bwd.LAUNCHES == before + 1
     want = native_msda_backward(img, shapes, pts, wts, og, padding_mode,
                                 align_corners)
+    _check(got[0], want[0], dtype, IMG_GRAD_TOL[dtype])
+    _check(got[1], want[1], torch.float32, POINT_GRAD_TOL)
+    _check(got[2], want[2], torch.float32, POINT_GRAD_TOL)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose storage starts one element past an
+    allocation: not 16-byte aligned (nor 8-byte in the half types)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 8 != 0
+    return view
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_kernels_take_misaligned_tensors(device, dtype, padding_mode,
+                                         align_corners):
+    img, shapes, pts, wts, og = _inputs(device, dtype, with_grad=True, N=33)
+    mode = (padding_mode, align_corners)
+    want = native_multiscale_deformable_attention(img, shapes, pts, wts,
+                                                  *mode)
+    _check(cuda_fwd.msda_fwd(_misaligned(img), shapes, pts, wts, *mode),
+           want, dtype)
+    wants = native_msda_backward(img, shapes, pts, wts, og, *mode)
+    for args in ((_misaligned(img), og), (img, _misaligned(og))):
+        got = cuda_bwd.msda_bwd(args[0], shapes, pts, wts, args[1], *mode)
+        _check(got[0], wants[0], dtype, IMG_GRAD_TOL[dtype])
+        _check(got[1], wants[1], torch.float32, POINT_GRAD_TOL)
+        _check(got[2], wants[2], torch.float32, POINT_GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_kernels_with_every_query_on_one_pixel(device, dtype, padding_mode,
+                                               align_corners):
+    """Every query of a head samples the same points, so the img_grad adds
+    of a whole warp (and of every warp) fall on the same rows."""
+    img, shapes, pts, wts, og = _inputs(device, dtype, with_grad=True,
+                                        N=300, P=2)
+    pts = pts[:, :1].expand_as(pts).contiguous()
+    mode = (padding_mode, align_corners)
+    _check(cuda_fwd.msda_fwd(img, shapes, pts, wts, *mode),
+           native_multiscale_deformable_attention(img, shapes, pts, wts,
+                                                  *mode), dtype)
+    got = cuda_bwd.msda_bwd(img, shapes, pts, wts, og, *mode)
+    want = native_msda_backward(img, shapes, pts, wts, og, *mode)
     _check(got[0], want[0], dtype, IMG_GRAD_TOL[dtype])
     _check(got[1], want[1], torch.float32, POINT_GRAD_TOL)
     _check(got[2], want[2], torch.float32, POINT_GRAD_TOL)
