@@ -39,17 +39,23 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       against ``stream.plain_stream_fwd`` / ``plain_stream_bwd`` at the
       256-base pyramid (B=4, N=10,000), a small pyramid with several bands
       and column tiles per level (widths not multiples of 8), a ragged N
-      with out-of-bounds points and a skewed case with every point in one
-      band; f32, bf16 and f16; every padding_mode x align_corners;
-   b. the path: ``multiscale_deformable_attention(impl="auto")`` forward
-      and backward at the 256-base pyramid, which the L2 router sends to
-      the streamed kernels only (launches counted), against the plain
-      versions;
+      with out-of-bounds points, a skewed case with every point in one
+      band, encoder layer 0's call of the full-width model at 1600x2666
+      (batch 1, the model's own points) and a coincident case with every
+      point of a (b, h) at one place; f32, bf16 and f16; every
+      padding_mode x align_corners;
+   b. the refitted routes: ``multiscale_deformable_attention(impl="auto")``
+      forward and backward at the 512-base pyramid, where the router keeps
+      both directions on K1 and K2, and with ``stream.forced()`` at the
+      256-base pyramid (both streamed); launches counted, results against
+      the plain versions;
    c. K3' against K1 and K4' + K5' against K2, in turns with the plain
       versions, at the 256-base pyramid in f32 and bf16;
-   d. a sweep over pyramid bases 64, 128, 256 and 512 (B=4, N=10,000, f32
-      and bf16): streamed against resident kernels, and the router's
-      choice, at each size;
+   d. the router's sweep: pyramid bases 64, 128, 256 and 512 (B=4,
+      N=10,000, uniform points) and encoder layer 0's call of the full-width
+      model at 800x1333, 1200x2000 and 1600x2666 (batch 2) and at 2560x4266
+      and 3200x5332 (batch 1), f32 and bf16: streamed against resident
+      calls, and the router's choice beside both;
    e. one ``--pyramid big`` run of ``python -m msda_tpu_torch.benchmark``
       at N=10,000.
 
@@ -74,7 +80,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from msda_tpu_torch import benchmark  # noqa: E402
-from msda_tpu_torch.models import DeformableDetr, init_parameters, postprocess  # noqa: E402
+from msda_tpu_torch.models import DeformableDetr, attention, init_parameters, postprocess  # noqa: E402
 from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, stream  # noqa: E402
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
@@ -87,8 +93,15 @@ from msda_tpu_torch.utils import (msda_bound, reference_workload,  # noqa: E402
 # image at strides 8/16/32/64, ResNet-50 C3-C5 + one extra level.
 SLICE_SHAPES = ((100, 167), (50, 84), (25, 42), (13, 21))
 IN_CHANNELS = (512, 1024, 2048, 2048)
+STRIDES = (8, 16, 32, 64)
 IMAGE_HW = (800, 1333)
+# inputs past 800x1333 (high-resolution detection): one image's f32
+# pyramid is 51.1 MB at 1200x2000 and 90.9 MB at 1600x2666, past the L2
+MODEL_SIZES = ((800, 1333), (1200, 2000), (1600, 2666))
 BATCH = 2
+# larger inputs, at batch 1: one image's f32 pyramid and gradient take 465
+# and 726 MB, 9 and 14 times an H100's L2 (the 512-base pyramid: 713 MB)
+LARGE_MODEL_SIZES = ((2560, 4266), (3200, 5332))
 MODEL = dict(num_classes=91, in_channels=IN_CHANNELS, emb_dim=256,
              num_heads=8, num_points=4, num_queries=300,
              num_encoder_layers=6, num_decoder_layers=6, ffn_dim=1024,
@@ -98,6 +111,8 @@ LAUNCHES_PER_FORWARD = 12  # 6 encoder + 6 decoder layers
 REF_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
 # scripts/benchmark.py --pyramid big: I = 87,040, 356 MB of f32 img at B=4
 BIG_SHAPES = ((256, 256), (128, 128), (64, 64), (32, 32))
+# the 512-base pyramid, where the router streams the backward (phase 7b)
+PATH_SHAPES = tuple((512 >> i, 512 >> i) for i in range(4))
 # training: 50 target slots per image, a seeded ~7 of them real (COCO's
 # mean); the Deformable DETR optimizer (AdamW, lr 2e-4, weight decay 1e-4)
 TARGET_SLOTS = 50
@@ -318,11 +333,55 @@ def check_backward_kernel() -> float:
     return enc_f32_err
 
 
-def make_pyramid(seed: int):
+def make_pyramid(seed: int, shapes=SLICE_SHAPES, batch: int = BATCH):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(
-        (BATCH, h, w, c), dtype=np.float32)).to(DEVICE)
-        for (h, w), c in zip(SLICE_SHAPES, IN_CHANNELS)]
+        (batch, h, w, c), dtype=np.float32)).to(DEVICE)
+        for (h, w), c in zip(shapes, IN_CHANNELS)]
+
+
+def model_shapes(hw) -> tuple:
+    """The pyramid of an input of ``hw`` pixels: ``ceil(size / stride)``
+    at strides 8/16/32/64."""
+    return tuple((-(-hw[0] // s), -(-hw[1] // s)) for s in STRIDES)
+
+
+class _Captured(Exception):
+    pass
+
+
+def model_call(hw=IMAGE_HW, batch: int = BATCH, call: int = 0,
+               seed: int = 30):
+    """The op's arguments at its ``call``-th call in one forward of the
+    full-width two-stage model (0: encoder layer 0, 6: decoder layer 0) on
+    a seeded pyramid for an input of ``hw`` pixels: the sampling pattern of
+    the main path.  Spied at the op (``models.attention`` calls
+    ``multiscale_deformable_attention``), so that the router's choice does
+    not matter; the forward stops at that call.  Returns ``(img, shapes,
+    pts, wts)``, f32 and contiguous."""
+    shapes = model_shapes(hw)
+    model = build_model("cuda", True)
+    pyramid = make_pyramid(seed, shapes, batch)
+    seen, real = [], attention.multiscale_deformable_attention
+
+    def spy(img, img_shapes, pts, wts, *args, **kwargs):
+        if len(seen) == call:
+            seen.append((img, pts, wts))
+            raise _Captured
+        seen.append(None)
+        return real(img, img_shapes, pts, wts, *args, **kwargs)
+
+    attention.multiscale_deformable_attention = spy
+    try:
+        with torch.inference_mode():
+            model(pyramid, shapes)
+    except _Captured:
+        pass
+    finally:
+        attention.multiscale_deformable_attention = real
+    img, pts, wts = (t.float().contiguous().clone() for t in seen[call])
+    del model, pyramid, seen
+    return img, shapes, pts, wts
 
 
 def make_targets(seed: int):
@@ -675,9 +734,13 @@ def time_big_pyramid(smi: str) -> None:
 # Phase 7.  Cases for the streamed kernels: the 256-base pyramid with the
 # default plan; a small pyramid whose explicit plan cuts every level into
 # several bands (and columns), widths not multiples of 8; the reference
-# pyramid with a ragged N, out-of-bounds points and several bands; and a
-# skewed case with every point in one band of level 0 (a bin of all 40,000
-# samples of each (b, h, level), served in slices).
+# pyramid with a ragged N, out-of-bounds points and several bands; a skewed
+# case with every point in one band of level 0 (a bin of all 40,000
+# samples of each (b, h, level)); encoder layer 0's call of the full-width
+# model at 1600x2666 (batch 1, the model's own points); and a coincident
+# case with every point of a (b, h) at one place, so that each level's
+# 40,000 samples of a (b, h) fall on one pixel (one bin, served in many
+# slices and chunks, and the backward's runs of one pixel).
 STREAM_CASES = {
     "big_pyramid": dict(shapes=BIG_SHAPES, B=4, N=10000, H=8, C=32, P=4,
                         seed=50, plan=None),
@@ -686,39 +749,62 @@ STREAM_CASES = {
                         plan=((4, 5), (3, 100), (2, 2), (1, 1))),
     "ragged_oob": dict(shapes=REF_SHAPES, B=2, N=1037, H=8, C=32, P=4,
                        seed=52, oob=True,
-                       plan=((5, 64), (4, 9), (3, 16), (8, 8))),
+                       plan=((4, 64), (4, 9), (3, 16), (8, 8))),
     "skewed": dict(shapes=REF_SHAPES, B=1, N=10000, H=8, C=32, P=4, seed=53,
-                   skew=True, plan=((8, 64), (8, 32), (8, 16), (8, 8))),
+                   skew=True, plan=((4, 64), (8, 32), (8, 16), (8, 8))),
+    "model_1600x2666": dict(shapes=model_shapes(MODEL_SIZES[-1]), B=1, C=32,
+                            seed=54, model=MODEL_SIZES[-1], plan=None),
+    "coincident": dict(shapes=REF_SHAPES, B=2, N=10000, H=8, C=32, P=4,
+                       seed=55, coincident=True, plan=None),
 }
 SWEEP_BASES = (64, 128, 256, 512)
 
 
-def stream_inputs(shapes, B, N, H, C, P, seed, oob=False, skew=False,
-                  plan=None):
+def stream_inputs(shapes, B, C, seed, N=None, H=8, P=4, oob=False,
+                  skew=False, coincident=False, model=None, plan=None):
     """``op_inputs`` (with out_grad); ``skew`` puts every point's y in
-    [0.40, 0.41), one band of each level."""
+    [0.40, 0.41), one band of each level; ``coincident`` puts every point
+    of a (b, h) where its first one is (with a non-negative out_grad);
+    ``model`` takes img, points and
+    weights from ``model_call`` at that input size (out_grad seeded)."""
+    if model is not None:
+        img, _, pts, wts = model_call(model, B)
+        rng = np.random.default_rng(seed)
+        og = torch.from_numpy(rng.standard_normal(
+            (B, pts.shape[1], H, C), dtype=np.float32)).to(DEVICE)
+        return img, pts, wts, og
     img, pts, wts, og = op_inputs(shapes, B, N, H, C, P, seed, oob=oob,
                                   out_grad=True)
     if skew:
         pts[..., 1] = 0.40 + 0.01 * pts[..., 1]
+    if coincident:
+        pts = pts[:, :1, :, :1, :1].expand_as(pts).contiguous()
+        # a pixel then sums 40,000 img_grad terms: with signs at random,
+        # any two f32 orders of that sum differ by about 1e-4 of it, the
+        # plain version's too, so out_grad is taken non-negative
+        og = og.abs()
     return img, pts, wts, og
 
 
-def check_bins(name, case, pts) -> float:
+def check_bins(name, case, pts, wts) -> float:
     """The binning kernels against ``stream.sample_bins``: the same count in
-    every bin, and ``order`` a permutation of the samples, bin by bin.
-    Returns the largest difference of a bin's count."""
+    every bin, the records' indices a permutation of the samples, bin by
+    bin, each with its sample's point and weight.  Returns the largest
+    difference of a bin's count."""
     shapes = case["shapes"]
     plan = stream.check_plan(shapes, case["plan"], case["C"], torch.float32)
-    order, _, counts = cuda_stream.bin_samples(pts, shapes, plan)
+    records, _, counts, _ = cuda_stream.bin_samples(pts, wts, shapes, plan)
     torch.cuda.synchronize()
+    order = records.view(torch.int32)[:, 3]
     bins = stream.sample_bins(pts, shapes, plan).flatten()
     want = torch.bincount(bins, minlength=counts.numel())
     ok = (torch.equal(counts.long(), want)
           and torch.equal(torch.sort(order.long()).values,
                           torch.arange(order.numel(), device=DEVICE))
           and torch.equal(bins[order.long()], torch.repeat_interleave(
-              torch.arange(counts.numel(), device=DEVICE), want)))
+              torch.arange(counts.numel(), device=DEVICE), want))
+          and torch.equal(records[:, :2], pts.reshape(-1, 2)[order.long()])
+          and torch.equal(records[:, 2], wts.flatten()[order.long()]))
     log(f"bins {name:12s}: {counts.numel()} bins, largest "
         f"{int(want.max())} samples, {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -734,7 +820,7 @@ def check_stream_kernels() -> dict:
     for name, case in STREAM_CASES.items():
         img32, pts, wts, og32 = stream_inputs(**case)
         shapes, plan = case["shapes"], case["plan"]
-        bin_err = check_bins(name, case, pts)
+        bin_err = check_bins(name, case, pts, wts)
         if name == "big_pyramid":
             errs["msda_stream_bin"] = bin_err
         for dtype in TOL:
@@ -781,19 +867,21 @@ def check_stream_kernels() -> dict:
     return errs
 
 
-def large_pyramid_path(smi: str) -> dict:
-    """Phase 7b: the op at the 256-base pyramid through impl="auto", forward
-    and backward, 1 + 3 times; the router must send both to the streamed
-    kernels.  Returns every kernel's launch count over the run."""
+def run_path(name: str, shapes, B: int, seed: int, expected: dict,
+             smi: str) -> dict:
+    """The op through impl="auto", forward and backward, 1 + 3 times at
+    ``shapes`` (N=10,000, f32), against the plain streamed versions;
+    ``expected``: each kernel's launches per step.  Returns every kernel's
+    launch count over the run."""
     img, shapes, pts, wts, og = reference_workload(
-        10000, torch.float32, BIG_SHAPES, seed=60, device=DEVICE)
+        10000, torch.float32, shapes, seed=seed, batch=B, device=DEVICE)
     _, _, H, C = img.shape
     l2 = stream.l2_bytes(DEVICE)
     routes = (stream.use_streaming_fwd(shapes, H, C, img.dtype, l2),
               stream.use_streaming_bwd(shapes, H, C, img.dtype, l2))
-    size = stream.image_bytes(shapes, H, C, img.dtype)
-    log(f"large-pyramid path: one image's pyramid {size} bytes, L2 {l2} "
-        f"bytes; streams (fwd, bwd) {routes}")
+    size = img[0].numel() * img.element_size()
+    log(f"{name}: one image's pyramid {size} bytes, L2 {l2} bytes; streams "
+        f"(fwd, bwd) {routes}")
     steps = 4
     times = []
     torch.cuda.synchronize()
@@ -810,9 +898,8 @@ def large_pyramid_path(smi: str) -> dict:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     counts = launches()
-    check_path_launches("large-pyramid path", counts, {
-        "msda_stream_fwd": steps, "msda_stream_bwd": steps,
-        "msda_stream_bin": 2 * steps})
+    check_path_launches(name, counts, {k: steps * n
+                                       for k, n in expected.items()})
     mode = (benchmark.PADDING, benchmark.ALIGN)
     pairs = [("out", out.detach(), stream.plain_stream_fwd(
         img, shapes, pts, wts, *mode), TOL[torch.float32])]
@@ -827,14 +914,27 @@ def large_pyramid_path(smi: str) -> dict:
         ok &= (g.shape == w.shape and mixed <= tol
                and torch.isfinite(g).all().item())
         report.append(f"{what} {abs_err:.2e}/{mixed:.2e}")
-    log(f"large-pyramid path (B=4, N=10000, f32, {mode[0]}, ac="
-        f"{int(mode[1])}): fwd+bwd ms {', '.join(f'{t:.3f}' for t in times)}"
-        f" (first is the warm-up); launches {counts}; vs plain max_abs/err "
+    log(f"{name} (B={B}, N=10000, f32, {mode[0]}, ac={int(mode[1])}): "
+        f"fwd+bwd ms {', '.join(f'{t:.3f}' for t in times)} (first is the "
+        f"warm-up); launches {counts}; vs plain max_abs/err "
         f"{'; '.join(report)} {'ok' if ok else 'FAIL'} on {smi}")
     if not ok:
-        raise AssertionError("the large-pyramid path disagrees with the "
-                             "plain versions")
+        raise AssertionError(f"{name} disagrees with the plain versions")
     return counts
+
+
+def large_pyramid_path(smi: str) -> dict:
+    """Phase 7b: the refitted routes.  At the 512-base pyramid (B=2) the
+    router keeps the forward on K1 and the backward on K2; with
+    ``stream.forced()``, at the 256-base pyramid (B=4), both go to the
+    streamed kernels.  Returns {path: every kernel's launch count}."""
+    auto = run_path("large-pyramid path", PATH_SHAPES, 2, 60, {
+        cuda_fwd.KERNEL: 1, cuda_bwd.KERNEL: 1}, smi)
+    with stream.forced():
+        forced = run_path("forced streamed path", BIG_SHAPES, 4, 62, {
+            "msda_stream_fwd": 1, "msda_stream_bwd": 1,
+            "msda_stream_bin": 2}, smi)
+    return {"large_pyramid": auto, "forced_stream": forced}
 
 
 def time_stream_kernels(smi: str) -> dict:
@@ -858,14 +958,16 @@ def time_stream_kernels(smi: str) -> dict:
         pts32 = pts.contiguous()
         binning = (lambda: torch.sort(stream.sample_bins(pts32, BIG_SHAPES,
                                                          plan).flatten()),
-                   lambda: cuda_stream.bin_samples(pts32, BIG_SHAPES, plan),
+                   lambda: cuda_stream.bin_samples(pts32, wts, BIG_SHAPES,
+                                                   plan),
                    None)
-        # the binning reads the points and writes order (one int32 per
-        # sample), counts and starts (one int32 per bin each)
+        # what a binning must move: the points in, one int32 place per
+        # sample and an int32 count and start per bin out (the records the
+        # kernels' binning writes are an intermediate of their design)
         B, N, H, L, P, _ = pts.shape
         C = img.shape[-1]
         bins = B * H * stream.num_bins(BIG_SHAPES, plan)
-        bin_bytes = pts32.numel() * 4 + pts32.numel() // 2 * 4 + 2 * bins * 4
+        bin_bytes = pts32.numel() * 4 + wts.numel() * 4 + bins * 8
         bin_ms, bin_by = roofline_ms(bin_bytes, 0)
         bounds = {
             "msda_stream_fwd": msda_bound(BIG_SHAPES, B, N, H, C, P, dtype,
@@ -897,41 +999,64 @@ def time_stream_kernels(smi: str) -> dict:
     return times
 
 
-def sweep_pyramids(smi: str) -> None:
-    """Phase 7d: streamed against resident kernels over pyramid sizes, in
-    turns (resident, streamed, streamed, resident), and the router's
-    choice at each size."""
+def sweep_cases():
+    """Phase 7d's points: (name, pyramid, f32 inputs) for the uniform
+    bases (B=4, N=10,000) and encoder layer 0's call of the full-width
+    model at each of MODEL_SIZES (batch 2) and LARGE_MODEL_SIZES (batch 1),
+    the model's own points."""
     for base in SWEEP_BASES:
         shapes = tuple((base >> i, base >> i) for i in range(4))
+        img, _, pts, wts, og = reference_workload(
+            10000, torch.float32, shapes, seed=70, device=DEVICE)
+        yield f"base {base}", shapes, (img, pts, wts, og)
+    for sizes, batch in ((MODEL_SIZES, BATCH), (LARGE_MODEL_SIZES, 1)):
+        for hw in sizes:
+            inputs = stream_inputs(model_shapes(hw), B=batch, C=32, seed=71,
+                                   model=hw)
+            yield f"model {hw[0]}x{hw[1]}", model_shapes(hw), inputs
+
+
+def sweep_pyramids(smi: str) -> list:
+    """Phase 7d: streamed against resident calls (the wrappers, binning
+    and buffers included), in turns (resident, streamed, streamed,
+    resident), and the router's choice beside both times.  Returns rows
+    (point, dtype, direction, resident ms, streamed ms, streams)."""
+    rows = []
+    l2 = stream.l2_bytes(DEVICE)
+    for name, shapes, (img32, pts, wts, og32) in sweep_cases():
+        H, C = img32.shape[2], img32.shape[3]
         for dtype in (torch.float32, torch.bfloat16):
-            img, _, pts, wts, og = reference_workload(
-                10000, dtype, shapes, seed=70, device=DEVICE)
-            H, C = img.shape[2], img.shape[3]
-            l2 = stream.l2_bytes(DEVICE)
-            routes = ("stream" if stream.use_streaming_fwd(
-                shapes, H, C, dtype, l2) else "K1",
-                "stream" if stream.use_streaming_bwd(
-                    shapes, H, C, dtype, l2) else "K2")
-            row = []
-            for resident, streamed in (
-                    (lambda: cuda_fwd.msda_fwd(img, shapes, pts, wts),
+            img, og = img32.to(dtype), og32.to(dtype)
+            line = []
+            for direction, resident, streamed, route in (
+                    ("fwd", lambda: cuda_fwd.msda_fwd(img, shapes, pts, wts),
                      lambda: cuda_stream.msda_stream_fwd(img, shapes, pts,
-                                                         wts)),
-                    (lambda: cuda_bwd.msda_bwd(img, shapes, pts, wts, og),
+                                                         wts),
+                     stream.use_streaming_fwd),
+                    ("bwd", lambda: cuda_bwd.msda_bwd(img, shapes, pts, wts,
+                                                      og),
                      lambda: cuda_stream.msda_stream_bwd(img, shapes, pts,
-                                                         wts, og))):
-                r1 = time_ms(resident, 10)
-                s1 = time_ms(streamed, 10)
-                s2 = time_ms(streamed, 10)
-                r2 = time_ms(resident, 10)
-                row.append(((r1 + r2) / 2, (s1 + s2) / 2))
-            (k1, k3), (k2, k45) = row
-            log(f"sweep base {base:3d} (I={img.shape[1]}, img "
+                                                         wts, og),
+                     stream.use_streaming_bwd)):
+                r1 = time_ms(resident, 5)
+                s1 = time_ms(streamed, 5)
+                s2 = time_ms(streamed, 5)
+                r2 = time_ms(resident, 5)
+                r, t = (r1 + r2) / 2, (s1 + s2) / 2
+                streams = route(shapes, H, C, dtype, l2)
+                picked, best = (t if streams else r), min(r, t)
+                rows.append((name, dtype, direction, r, t, streams))
+                line.append(
+                    f"{direction} {'K1' if direction == 'fwd' else 'K2'} "
+                    f"{r:.4f} / streamed {t:.4f} ms, router "
+                    f"{'streams' if streams else 'resident'} "
+                    f"({100 * (picked / best - 1):+.1f}% of the faster)")
+            log(f"sweep {name:16s} (I={img.shape[1]}, B={img.shape[0]}, img "
                 f"{img.numel() * img.element_size() / 1e6:.1f} MB) "
-                f"{str(dtype)[6:]:8s}: fwd K1 {k1:.4f} / streamed {k3:.4f} ms"
-                f" ({k1 / k3:.2f}x), bwd K2 {k2:.4f} / streamed {k45:.4f} ms "
-                f"({k2 / k45:.2f}x); router picks {routes} on {smi}")
-            del img, pts, wts, og
+                f"{str(dtype)[6:]:8s}: {'; '.join(line)} on {smi}")
+            del img, og
+        del img32, pts, wts, og32
+    return rows
 
 
 def benchmark_row(smi: str) -> None:
@@ -958,7 +1083,7 @@ def main() -> None:
     served = serve(smi)
     trained, per_train_step = train(smi)
     by_path = {"serve": served, "train": trained,
-               "large_pyramid": large_pyramid_path(smi)}
+               **large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
              cuda_bwd.KERNEL: time_backward_kernel(smi)}
     time_big_pyramid(smi)

@@ -8,9 +8,9 @@ Sweeps the number of queries at the reference workload (B=4, H=8, C=32,
 P=4, ``padding_mode="border"``, ``align_corners=True``;
 ``utils.reference_workload``) on the reference pyramid 64/32/16/8 or, with
 ``--pyramid big``, the 256-base pyramid 256/128/64/32 (I = 87,040 pixels,
-356 MB of f32 ``img`` at B=4), where ``impl="cuda"`` routes to the
-streamed kernels by itself.  ``--force-stream`` routes every ``cuda`` call
-there (``ops.stream.FORCE``).  For each implementation (f32; ``--bf16``
+356 MB of f32 ``img`` at B=4), beyond the card's L2, where
+``impl="cuda"`` still runs K1 and K2.  ``--force-stream`` routes every
+``cuda`` call to the streamed kernels (``ops.stream.FORCE``).  For each implementation (f32; ``--bf16``
 adds ``cuda`` in bf16) and each N it measures:
 
   fwd_ms       the op's forward, under ``inference_mode``;

@@ -71,6 +71,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 // The four corners of one sampling point on its level.
 struct Corners {
   int i00, i01, i10, i11;  // flat pyramid indices (row-major y, x), clamped
+  int x0c, x1c, y0c, y1c;  // the clamped columns and rows of the corners
+  float dx, dy;            // the point's offsets from its top-left corner
   float vx0, vx1;          // masked x lerp factors: (1 - dx, dx)
   float uy0, uy1;          // masked y lerp factors: (1 - dy, dy)
   float mx0, mx1;          // corner masks as 0/1 (all 1 in border mode)
@@ -107,6 +109,8 @@ __device__ __forceinline__ Corners corner_geometry(
     by1 = y0 + 1 >= 0 && y0 + 1 < hl;
   }
   Corners g;
+  g.dx = dx;
+  g.dy = dy;
   g.vx0 = bx0 ? 1.f - dx : 0.f;
   g.vx1 = bx1 ? dx : 0.f;
   g.uy0 = by0 ? 1.f - dy : 0.f;
@@ -119,6 +123,10 @@ __device__ __forceinline__ Corners corner_geometry(
   const int x1c = min(max(x0 + 1, 0), wl - 1);
   const int y0c = min(max(y0, 0), hl - 1);
   const int y1c = min(max(y0 + 1, 0), hl - 1);
+  g.x0c = x0c;
+  g.x1c = x1c;
+  g.y0c = y0c;
+  g.y1c = y1c;
   g.i00 = off + y0c * wl + x0c;
   g.i01 = off + y0c * wl + x1c;
   g.i10 = off + y1c * wl + x0c;

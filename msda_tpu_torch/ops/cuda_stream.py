@@ -1,13 +1,28 @@
 """Wrappers of the streamed CUDA kernels in ``csrc/msda_stream.cu``.
 
 The kernels replace the TPU kernels of ``msda_tpu/ops/pallas_stream.py``:
-``msda_stream_fwd`` (K3', for ``_stream_fwd_kernel``) and
+``msda_stream_fwd`` (K3', for ``_stream_fwd_kernel`` :206) and
 ``msda_stream_bwd`` (K4' + K5' as one kernel, for ``_stream_bwd_pts_kernel``
-and ``_stream_bwd_img_kernel``), with the binning kernels they share
-(``bin_samples``).  See the note at the top of the source for their design
-and what bounds them, and ``stream.py`` for the band plan, the router and
-the plain versions (``stream.plain_stream_fwd`` / ``plain_stream_bwd`` /
-``sample_bins``).
+:330 and ``_stream_bwd_img_kernel`` :411), with the binning kernels they
+share (``bin_samples``, for the band selection of ``_band_factors`` :187).
+``stream.py`` holds the band plan, the router and the plain versions
+(``stream.plain_stream_fwd`` / ``plain_stream_bwd`` / ``sample_bins``).
+
+What the source's note sets out, measured on an H100 (``PERF.md``): the
+first kernels had no single bound (staging, atomics and geometry
+broadcasts each cost 10-25%).  The redesign bins each sample's record
+(point, weight, index) so that the kernels read 16 contiguous bytes a
+sample; persistent blocks take chunks of a cost line from a counter; a
+ring of two tiles and two record buffers keeps the next slice's copies in
+flight (cp.async, L2 evict-first) while one is served; one thread a
+sample computes its geometry into shared memory for its group of lanes;
+the forward sums a query's points on a tile in registers; the backward
+counting-sorts each slice by pixel so that runs on the same four pixels
+add their ``img_grad`` terms once, and stores each sample's point and
+weight gradients at its index.  As whole calls (binning, buffers and
+casts included) both are faster than the first kernels at every size
+measured, but K1 and K2 stay faster on the model's own points, so the
+router sends a call here only under ``stream.FORCE``.
 
 The wrappers check device, dtype, shape and contiguity (``cuda_fwd``'s
 checks, plus the plan's) and raise on anything the kernels do not take;
@@ -18,7 +33,7 @@ weight gradients are cast to the dtypes of ``sampling_points`` and
 ``attention_weights``.  Every output and scratch buffer is allocated here.
 The library is built at first use (``_build.load_library``).  ``LAUNCHES``
 counts, per kernel, the calls that launched it: one per ``bin_samples``
-(its count and scatter kernels), one per forward, one per backward.
+(its count, scan and scatter kernels), one per forward, one per backward.
 """
 
 from __future__ import annotations
@@ -36,8 +51,6 @@ __all__ = ["LIBRARY", "KERNELS", "LAUNCHES", "load", "bin_samples",
 
 LIBRARY = "msda_stream"
 KERNELS = ("msda_stream_bin", "msda_stream_fwd", "msda_stream_bwd")
-#: samples of a bin that one block serves
-SLICE = 4096
 _INT32_MAX = 2**31 - 1
 
 # Launches per kernel since import (or since a caller reset them).
@@ -49,14 +62,14 @@ def load() -> ctypes.CDLL:
     lib = _build.load_library(LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn, ptrs in ((lib.msda_stream_count_launch, 2),
-                     (lib.msda_stream_scatter_launch, 3)):
+                     (lib.msda_stream_scatter_launch, 4)):
         fn.argtypes = [vp] * (ptrs + 2) + [ci] * 7 + [vp]
         fn.restype = ci
-    lib.msda_stream_fwd_launch.argtypes = (
-        [ci] + [vp] * 10 + [ci] * 12 + [vp])
+    lib.msda_stream_scan_launch.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    lib.msda_stream_scan_launch.restype = ci
+    lib.msda_stream_fwd_launch.argtypes = [ci] + [vp] * 8 + [ci] * 10 + [vp]
     lib.msda_stream_fwd_launch.restype = ci
-    lib.msda_stream_bwd_launch.argtypes = (
-        [ci] + [vp] * 13 + [ci] * 12 + [vp])
+    lib.msda_stream_bwd_launch.argtypes = [ci] + [vp] * 11 + [ci] * 10 + [vp]
     lib.msda_stream_bwd_launch.restype = ci
     return lib
 
@@ -66,22 +79,21 @@ def _raise(name, err):
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
-def _slices(counts):
-    """The first block of each bin's slices, and an upper bound of the
-    blocks: ``sum(ceil(count / SLICE)) <= ceil(total / SLICE) + bins``."""
-    per_bin = torch.div(counts + (SLICE - 1), SLICE, rounding_mode="floor")
-    first = torch.cumsum(per_bin, 0, dtype=torch.int32) - per_bin
-    return first, counts.numel()
+def bin_samples(pts: torch.Tensor, wts: torch.Tensor, img_shapes, plan,
+                align_corners=False):
+    """Sort the samples of ``pts`` ``[B, N, H, L, P, 2]`` and ``wts``
+    ``[B, N, H, L, P]`` (contiguous f32, on the card) into the tiles of
+    ``plan``.
 
-
-def bin_samples(pts: torch.Tensor, img_shapes, plan, align_corners=False):
-    """Sort the samples of ``pts`` ``[B, N, H, L, P, 2]`` (contiguous f32,
-    on the card) into the tiles of ``plan``.
-
-    Returns ``(order, starts, counts)``: int32 ``order`` ``[B*N*H*L*P]``
-    holds the flat sample indices bin by bin (in run-dependent order within
-    a bin), and bin ``k`` is ``order[starts[k] : starts[k] + counts[k]]``;
-    bins are numbered as in ``stream.sample_bins``.
+    Returns ``(records, starts, counts, staged)``: f32 ``records``
+    ``[B*N*H*L*P, 4]`` holds each sample's (x, y, weight, flat index as
+    int32 bits) bin by bin (in run-dependent order within a bin), and bin
+    ``k`` is ``records[starts[k] : starts[k] + counts[k]]``; bins are
+    numbered as in ``stream.sample_bins``.  int64 ``staged`` ``[bins + 2]``
+    holds a zero last (the counter from which the kernels' blocks take
+    chunks of their work), and before it the exclusive sum of the staged
+    pixels of the non-empty bins' tiles:
+    with ``starts``, the cost line on which the kernels split their work.
     """
     shapes = level_shapes(img_shapes)
     B, N, H, L, P, _ = pts.shape
@@ -92,21 +104,25 @@ def bin_samples(pts: torch.Tensor, img_shapes, plan, align_corners=False):
     level_hw = (ctypes.c_int * (2 * L))(*(v for hw in shapes for v in hw))
     tiles = (ctypes.c_int * (2 * L))(*(v for p in plan for v in p))
     counts = torch.zeros(bins, dtype=torch.int32, device=pts.device)
-    order = torch.empty(pts.numel() // 2, dtype=torch.int32,
-                        device=pts.device)
-    geometry = (ctypes.addressof(level_hw), ctypes.addressof(tiles),
-                B, N, H, L, P, int(bool(align_corners)), bins)
+    starts, cursor = torch.empty((2, bins), dtype=torch.int32,
+                                 device=pts.device)
+    staged = torch.empty(bins + 2, dtype=torch.int64, device=pts.device)
+    records = torch.empty((pts.numel() // 2, 4), dtype=torch.float32,
+                          device=pts.device)
+    tables = (ctypes.addressof(level_hw), ctypes.addressof(tiles))
+    geometry = (*tables, B, N, H, L, P, int(bool(align_corners)), bins)
     with torch.cuda.device(pts.device):
         s = torch.cuda.current_stream().cuda_stream
         LAUNCHES["msda_stream_bin"] += 1
         _raise("msda_stream_count_launch", lib.msda_stream_count_launch(
             pts.data_ptr(), counts.data_ptr(), *geometry, s))
-        starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-        cursor = starts.clone()
+        _raise("msda_stream_scan_launch", lib.msda_stream_scan_launch(
+            counts.data_ptr(), starts.data_ptr(), cursor.data_ptr(),
+            staged.data_ptr(), *tables, B, H, L, P, bins, s))
         _raise("msda_stream_scatter_launch", lib.msda_stream_scatter_launch(
-            pts.data_ptr(), cursor.data_ptr(), order.data_ptr(), *geometry,
-            s))
-    return order, starts, counts
+            pts.data_ptr(), wts.data_ptr(), cursor.data_ptr(),
+            records.data_ptr(), *geometry, s))
+    return records, starts, counts, staged
 
 
 def msda_stream_fwd(
@@ -135,21 +151,20 @@ def msda_stream_fwd(
     out = torch.zeros((B, N, H, C), dtype=torch.float32, device=img.device)
     if out.numel() == 0 or wts.numel() == 0:
         return out.to(img.dtype)
-    order, starts, counts = bin_samples(pts, shapes, plan, align_corners)
+    records, starts, counts, staged = bin_samples(pts, wts, shapes, plan,
+                                                  align_corners)
     tiles = (ctypes.c_int * (2 * L))(*(v for p in plan for v in p))
     lib = load()
     with torch.cuda.device(img.device):
-        slices, bins = _slices(counts)
-        blocks = -(-order.numel() // SLICE) + bins
         s = torch.cuda.current_stream().cuda_stream
         LAUNCHES["msda_stream_fwd"] += 1
         _raise("msda_stream_fwd_launch", lib.msda_stream_fwd_launch(
-            DTYPE_CODES[img.dtype], img.data_ptr(), pts.data_ptr(),
-            wts.data_ptr(), order.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), slices.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[img.dtype], img.data_ptr(), records.data_ptr(),
+            starts.data_ptr(), counts.data_ptr(), staged.data_ptr(),
+            out.data_ptr(),
             ctypes.addressof(level_hw), ctypes.addressof(tiles), B, I, N, H,
             C, L, P, int(padding_mode == "zeros"), int(bool(align_corners)),
-            bins, blocks, SLICE, s))
+            counts.numel(), s))
     return out.to(img.dtype)
 
 
@@ -188,25 +203,24 @@ def msda_stream_bwd(
     if img.numel() == 0 or wts.numel() == 0:
         return (torch.zeros_like(img), torch.zeros_like(sampling_points),
                 torch.zeros_like(attention_weights))
-    order, starts, counts = bin_samples(pts, shapes, plan, align_corners)
+    records, starts, counts, staged = bin_samples(pts, wts, shapes, plan,
+                                                  align_corners)
     tiles = (ctypes.c_int * (2 * L))(*(v for p in plan for v in p))
     lib = load()
     img_grad = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
     pts_grad = torch.empty(pts.shape, dtype=torch.float32, device=img.device)
     wts_grad = torch.empty(wts.shape, dtype=torch.float32, device=img.device)
     with torch.cuda.device(img.device):
-        slices, bins = _slices(counts)
-        blocks = -(-order.numel() // SLICE) + bins
         s = torch.cuda.current_stream().cuda_stream
         LAUNCHES["msda_stream_bwd"] += 1
         _raise("msda_stream_bwd_launch", lib.msda_stream_bwd_launch(
-            DTYPE_CODES[img.dtype], img.data_ptr(), pts.data_ptr(),
-            wts.data_ptr(), out_grad.data_ptr(), order.data_ptr(),
-            starts.data_ptr(), counts.data_ptr(), slices.data_ptr(),
-            img_grad.data_ptr(), pts_grad.data_ptr(), wts_grad.data_ptr(),
+            DTYPE_CODES[img.dtype], img.data_ptr(), out_grad.data_ptr(),
+            records.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            staged.data_ptr(), img_grad.data_ptr(), pts_grad.data_ptr(),
+            wts_grad.data_ptr(),
             ctypes.addressof(level_hw), ctypes.addressof(tiles), B, I, N, H,
             C, L, P, int(padding_mode == "zeros"), int(bool(align_corners)),
-            bins, blocks, SLICE, s))
+            counts.numel(), s))
     return (img_grad.to(img.dtype),
             pts_grad.to(sampling_points.dtype),
             wts_grad.to(attention_weights.dtype))

@@ -9,10 +9,12 @@ The counterpart of ``msda_tpu/ops/msda.py``.  Implementations:
                  rematerializes the sampling) and is first-order only.  It
                  takes CUDA tensors in bf16, f16 or f32 and always computes
                  in f32.  The forward and the backward each ask their own
-                 router (``stream.use_streaming_fwd`` / ``_bwd``, against
-                 the card's L2) and take the streamed kernels
-                 (``cuda_stream.py``) for pyramids that outgrow it, as the
-                 JAX forward and backward route to ``pallas_stream``.
+                 router (``stream.use_streaming_fwd`` / ``_bwd``), as the
+                 JAX forward and backward route to ``pallas_stream``; it
+                 sends them to the streamed kernels (``cuda_stream.py``)
+                 only under ``stream.FORCE``, since K1 and K2 were the
+                 faster on the model's own points at every pyramid
+                 measured.
     "reference": the plain gather-based version (``reference.py``); any
                  device, f64-capable, differentiable through autograd.
     "auto":      "cuda" for CUDA tensors in bf16/f16/f32, "reference" for
@@ -99,7 +101,7 @@ def _resolve_impl(impl: str, img: torch.Tensor) -> str:
 
 class _CudaMSDA(torch.autograd.Function):
     """The CUDA kernels as one autograd node, the counterpart of the JAX
-    ``_msda`` custom VJP: the forward is K1 (or K3' past the L2) and saves
+    ``_msda`` custom VJP: the forward is K1 (or K3' when forced) and saves
     only the primal inputs; the backward is K2 (or K4' + K5'), which
     rematerializes the sampling.  Like ``impl="pallas"``, it is first-order
     only."""

@@ -9,10 +9,10 @@ and atomics miss the 50 MB L2 once one image's pyramid outgrows it.  The
 streamed CUDA kernels (``cuda_stream.py``, ``csrc/msda_stream.cu``) keep
 the band decomposition and drop the rest of the TPU form (the E/A matrices,
 the bf16 splits, the padded pitch, the VMEM footprint model): a block
-stages one **tile** of a level in shared memory and serves every sampling
-point whose top-left corner lies in it; the backward adds its ``img_grad``
+stages one **tile** of a level in shared memory and serves the sampling
+points whose top-left corner lies in it; the backward adds its ``img_grad``
 terms with vector atomics into the tile's rows of a zeroed f32 buffer,
-which stay in L2 while the block runs.
+which stay in L2 while the tile is served.
 
 Tiles.  A level of ``h x w`` pixels is cut into bands of ``yb`` rows and,
 where a row is too wide for shared memory, into columns of ``xb`` pixels.
@@ -23,31 +23,30 @@ column right, so a tile is staged with one **halo** row and one halo column
 (where the level goes on): ``min(yb + 1, h - y0)`` rows by
 ``min(xb + 1, w - x0)`` columns.
 
-The band plan (:func:`band_plan`) derives ``(yb, xb)`` from the 227 KB of
-shared memory a block may use (``SMEM_BYTES``), where both kernels stage
-the tile in img's dtype.  A level that fits stays whole; otherwise
-full-width bands of at least ``MIN_BAND_ROWS`` rows; otherwise bands of
-``MIN_BAND_ROWS`` rows cut into columns.  A level whose tile cannot hold
-even two columns raises.
+The band plan (:func:`band_plan`) derives ``(yb, xb)`` from the shared
+memory of one tile (``TILE_BYTES``, 44 KiB), where both kernels stage the
+tile in img's dtype: a block keeps a ring of two tiles (one served, the
+next one copied in) beside its slice buffers, and an SM holds two blocks.
+A level that fits stays whole; otherwise full-width bands of at least
+``MIN_BAND_ROWS`` rows; otherwise bands of ``MIN_BAND_ROWS`` rows cut into
+columns.  A level whose tile cannot hold even two columns raises.
 
 The router (:func:`use_streaming_fwd` / :func:`use_streaming_bwd`, the
 counterparts of ``pallas_stream.use_streaming_fwd`` :130 / ``_bwd`` :143)
-is a capacity rule against the card's L2, not a port of the VMEM model.
-K1 numbers its warps with the batch slowest, so the warps in flight gather
-from about one image's pyramid: its working set is that image's ``img``,
-``I * H * C`` elements, and K2's adds the f32 ``img_grad`` it scatters
-into.  A call streams when that working set exceeds the L2:
-
-    forward:  I * H * C * itemsize(img)        > L2
-    backward: I * H * C * (itemsize(img) + 4)  > L2
-
-On an H100 (L2 = 50 MiB = 52,428,800 bytes) at H * C = 256 the crossover is
-I = 51,200 pixels in the f32 forward, 102,400 in bf16, 25,600 in the f32
-backward and 34,133 in bf16.  So the reference pyramid (64/32/16/8,
-I = 5,440) and Deformable DETR at 800x1333 (I = 22,223) stay on K1/K2 in
-every dtype, and the 256-base pyramid (I = 87,040) streams in f32 (and in
-the bf16 backward).  ``FORCE`` (or :func:`forced`) routes every call to the
-streamed kernels, the counterpart of ``scripts/benchmark.py:_force_stream``.
+is fitted to whole calls timed on the card (``chip_smoke.py`` phase 7d;
+``PERF.md``), not a port of the VMEM model.  It cannot see the points, so
+where the model's own points and uniform ones disagree it follows the
+model's.  Measured on an H100 (50 MiB L2), from the reference pyramid to
+the 512-base one and on the full-width model's own points from 800x1333
+to 3200x5332 (one image's f32 pyramid and gradient 46 to 726 MB): the
+streamed forward with its binning took 1.5-2.3x K1's time everywhere; the
+streamed backward took 2-17% more than K2 on the model's points
+everywhere, while on uniform points at the 256- and 512-base pyramids K2
+took 11-25% more.  The model's neighbouring queries share pixels, so K1
+and K2 keep hitting the L2 far past its size.  So neither direction
+streams unless ``FORCE`` (or :func:`forced`) routes every call to the
+streamed kernels, the counterpart of
+``scripts/benchmark.py:_force_stream``.
 
 The plain versions (:func:`plain_stream_fwd`, :func:`plain_stream_bwd`)
 compute what the kernels compute with the same banding: the same keys,
@@ -68,7 +67,7 @@ import torch
 from .reference import _geometry, level_shapes
 
 __all__ = [
-    "SMEM_BYTES",
+    "TILE_BYTES",
     "MIN_BAND_ROWS",
     "FORCE",
     "band_plan",
@@ -76,7 +75,6 @@ __all__ = [
     "check_plan",
     "tile_bytes",
     "num_bins",
-    "image_bytes",
     "use_streaming_fwd",
     "use_streaming_bwd",
     "l2_bytes",
@@ -86,8 +84,10 @@ __all__ = [
     "plain_stream_bwd",
 ]
 
-#: dynamic shared memory one block may use on Hopper (227 KB)
-SMEM_BYTES = 232_448
+#: shared memory of one staged tile (``csrc/msda_stream.cu``
+#: STREAM_TILE_BYTES): two blocks an SM, each with a ring of two tiles and
+#: 24.1 KB of slice buffers, fill the SM's 228 KB
+TILE_BYTES = 45_056
 #: the shortest band a plan cuts before it cuts columns instead
 MIN_BAND_ROWS = 8
 #: route every call to the streamed kernels (tests, ``--force-stream``)
@@ -114,12 +114,12 @@ def band_plan(h: int, w: int, C: int, dtype) -> tuple[int, int]:
     """``(yb, xb)``: band rows and tile columns for a level of ``h x w``.
 
     ``yb >= h`` means one band, ``xb >= w`` full-width bands.  Raises
-    ``ValueError`` when a tile of two columns does not fit ``SMEM_BYTES``.
+    ``ValueError`` when a tile of two columns does not fit ``TILE_BYTES``.
     """
     if h < 1 or w < 1 or C < 1:
         raise ValueError(f"cannot plan a level of {h}x{w} with C={C}")
     px = _pixel_bytes(C, dtype)
-    max_px = SMEM_BYTES // px
+    max_px = TILE_BYTES // px
     if h * w <= max_px:
         return h, w
     if max_px // w - 1 >= MIN_BAND_ROWS:
@@ -132,7 +132,7 @@ def band_plan(h: int, w: int, C: int, dtype) -> tuple[int, int]:
             f"cannot plan the streamed kernels for a {h}x{w} level with "
             f"C={C} in {dtype}: a tile of {rows} rows x 2 columns needs "
             f"{rows * 2 * px} bytes of shared memory, more than the "
-            f"{SMEM_BYTES} a block may use")
+            f"{TILE_BYTES} of a tile")
     return yb, xb
 
 
@@ -145,7 +145,7 @@ def pyramid_plan(img_shapes, C: int, dtype):
 def check_plan(img_shapes, plan, C: int, dtype):
     """The plan for ``img_shapes``: :func:`pyramid_plan` when ``plan`` is
     None, else ``plan`` validated (one ``(yb, xb)`` of positive ints per
-    level, each tile within ``SMEM_BYTES``) as a tuple."""
+    level, each tile within ``TILE_BYTES``) as a tuple."""
     shapes = level_shapes(img_shapes)
     if plan is None:
         return pyramid_plan(shapes, C, dtype)
@@ -155,10 +155,10 @@ def check_plan(img_shapes, plan, C: int, dtype):
                          f"{shapes}, got {plan}")
     for (h, w), (yb, xb) in zip(shapes, plan):
         need = tile_bytes(h, w, yb, xb, C, dtype)
-        if need > SMEM_BYTES:
+        if need > TILE_BYTES:
             raise ValueError(f"a tile of plan {(yb, xb)} on a {h}x{w} level "
                              f"needs {need} bytes of shared memory, more "
-                             f"than {SMEM_BYTES}")
+                             f"than {TILE_BYTES}")
     return plan
 
 
@@ -168,24 +168,20 @@ def num_bins(img_shapes, plan) -> int:
                for (h, w), (yb, xb) in zip(level_shapes(img_shapes), plan))
 
 
-def image_bytes(img_shapes, heads: int, channels: int, dtype) -> int:
-    """Bytes of one image's pyramid, all heads: ``I * H * C * itemsize``."""
-    pixels = sum(h * w for h, w in level_shapes(img_shapes))
-    return pixels * heads * channels * torch.empty(
-        (), dtype=dtype).element_size()
-
-
 def use_streaming_fwd(img_shapes, heads, channels, dtype, l2: int) -> bool:
-    """Stream the forward when one image's pyramid exceeds ``l2`` bytes."""
-    return FORCE or image_bytes(img_shapes, heads, channels, dtype) > l2
+    """Stream the forward of a call on these pyramid shapes, heads,
+    channels and img dtype on a card of ``l2`` bytes of L2: only when
+    ``FORCE`` is set, since K1 was the faster at every pyramid measured."""
+    del img_shapes, heads, channels, dtype, l2
+    return FORCE
 
 
 def use_streaming_bwd(img_shapes, heads, channels, dtype, l2: int) -> bool:
-    """Stream the backward when one image's pyramid and its f32 gradient
-    together exceed ``l2`` bytes."""
-    return FORCE or (
-        image_bytes(img_shapes, heads, channels, dtype)
-        + image_bytes(img_shapes, heads, channels, torch.float32)) > l2
+    """As :func:`use_streaming_fwd`, for the backward: only when ``FORCE``
+    is set, since K2 was the faster on the model's own points at every
+    size measured."""
+    del img_shapes, heads, channels, dtype, l2
+    return FORCE
 
 
 @functools.lru_cache(maxsize=None)

@@ -343,8 +343,21 @@ def test_stream_kernels_match_plain(device, dtype, padding_mode,
     _check(grads[2], want[2], torch.float32, POINT_GRAD_TOL)
 
 
-def _check_bins(device, pts, shapes, plan):
-    order, starts, counts = cuda_stream.bin_samples(pts, shapes, plan)
+def _tile_pixels(shapes, plan, bh):
+    """Staged pixels of every bin's tile, for ``bh`` (b, h) pairs."""
+    px = [min(yb + 1, h - y0) * min(xb + 1, w - x0)
+          for (h, w), (yb, xb) in zip(shapes, plan)
+          for y0 in range(0, h, yb) for x0 in range(0, w, xb)]
+    return torch.tensor(px * bh, dtype=torch.int64)
+
+
+def _check_bins(device, pts, wts, shapes, plan):
+    records, starts, counts, staged = cuda_stream.bin_samples(
+        pts, wts, shapes, plan)
+    order = records.view(torch.int32)[:, 3]
+    # each record: the sample's point and weight, and its index
+    assert torch.equal(records[:, :2], pts.reshape(-1, 2)[order.long()])
+    assert torch.equal(records[:, 2], wts.flatten()[order.long()])
     bins = stream.sample_bins(pts, shapes, plan).flatten()
     want = torch.bincount(bins, minlength=counts.numel())
     assert torch.equal(counts.long(), want)
@@ -353,11 +366,17 @@ def _check_bins(device, pts, shapes, plan):
                        torch.arange(order.numel(), device=device))
     assert torch.equal(bins[order.long()], torch.repeat_interleave(
         torch.arange(counts.numel(), device=device), want))
+    # the cost line: the staged pixels of the non-empty tiles before a bin
+    px = _tile_pixels(shapes, plan, pts.shape[0] * pts.shape[2]).to(device)
+    px = torch.where(want > 0, px, 0)
+    assert torch.equal(staged.cpu(), torch.cat(
+        [torch.zeros(1, dtype=torch.int64), torch.cumsum(px, 0).cpu(),
+         torch.zeros(1, dtype=torch.int64)]))
 
 
 def test_stream_binning_matches_sample_bins(device):
-    _, shapes, pts, _ = _inputs(device, torch.float32, N=300, P=4, base=12)
-    _check_bins(device, pts, shapes, ((2, 5), (1, 2), (1, 1), (1, 1)))
+    _, shapes, pts, wts = _inputs(device, torch.float32, N=300, P=4, base=12)
+    _check_bins(device, pts, wts, shapes, ((2, 5), (1, 2), (1, 1), (1, 1)))
 
 
 def test_stream_kernels_past_the_shared_histogram(device):
@@ -368,7 +387,7 @@ def test_stream_kernels_past_the_shared_histogram(device):
                                         base=128)
     plan = ((1, 1),)
     assert stream.num_bins(shapes, plan) == 128 * 128
-    _check_bins(device, pts, shapes, plan)
+    _check_bins(device, pts, wts, shapes, plan)
     _check(cuda_stream.msda_stream_fwd(img, shapes, pts, wts, plan=plan),
            stream.plain_stream_fwd(img, shapes, pts, wts, plan=plan),
            torch.float32)
@@ -377,6 +396,69 @@ def test_stream_kernels_past_the_shared_histogram(device):
     for g, w, tol in zip(grads, want, (IMG_GRAD_TOL[torch.float32],
                                        POINT_GRAD_TOL, POINT_GRAD_TOL)):
         _check(g, w, torch.float32, tol)
+
+
+def _check_stream(img, shapes, pts, wts, og, mode, plan, dtype,
+                  og_kernel=None):
+    """Both streamed kernels against their plain versions (``og_kernel``:
+    the out_grad the backward kernel gets, same values as ``og``)."""
+    _check(cuda_stream.msda_stream_fwd(img, shapes, pts, wts, *mode,
+                                       plan=plan),
+           stream.plain_stream_fwd(img, shapes, pts, wts, *mode, plan=plan),
+           dtype)
+    grads = cuda_stream.msda_stream_bwd(
+        img, shapes, pts, wts, og if og_kernel is None else og_kernel,
+        *mode, plan=plan)
+    want = stream.plain_stream_bwd(img, shapes, pts, wts, og, *mode,
+                                   plan=plan)
+    _check(grads[0], want[0], dtype, IMG_GRAD_TOL[dtype])
+    _check(grads[1], want[1], torch.float32, POINT_GRAD_TOL)
+    _check(grads[2], want[2], torch.float32, POINT_GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_stream_kernels_with_every_point_of_a_head_on_one_pixel(
+        device, dtype, padding_mode, align_corners):
+    """Every point of a (b, h) at one place: each level's samples of a
+    (b, h) fall on one pixel, so the backward sorts runs of one pixel and
+    merges their img_grad adds.  A bin holds 18,000 samples and a block's
+    share of the 576,000 about 2,200, so blocks serve a bin in several
+    slices (of 1,024) and several blocks share one bin."""
+    img, shapes, pts, wts, og = _inputs(device, dtype, with_grad=True,
+                                        N=4500, P=4, base=32)
+    pts = pts[:, :1, :, :1, :1].expand_as(pts).contiguous()
+    _check_stream(img, shapes, pts, wts, og, (padding_mode, align_corners),
+                  None, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_stream_kernels_with_empty_bins_and_unequal_tiles(device, dtype):
+    """Every point in one band of each level (most bins empty), over tiles
+    of unequal size in one launch: column tiles with a narrow last one, a
+    whole level, and full-width bands."""
+    img, shapes, pts, wts, og = _inputs(device, dtype, with_grad=True,
+                                        N=500, P=4, base=24)
+    pts[..., 1] = 0.40 + 0.01 * pts[..., 1]
+    plan = ((5, 7), (2, 100), (100, 100), (1, 3))
+    for mode in MODES:
+        _check_stream(img, shapes, pts, wts, og, mode, plan, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("C", [6, 30, 34, 48])
+def test_stream_kernels_one_channel_a_lane(device, dtype, C):
+    """VEC = 1: C = 6, 30 and 34 (not multiples of 4; 34 takes two steps
+    of 32 lanes, so the sums are added per sample, not merged), and C = 48
+    with an out_grad view that is not 16-byte aligned (the backward's
+    VEC = 1 at two steps).  C = 6 and the half types' C = 30 and 34 stage
+    element by element."""
+    img, shapes, pts, wts, og = _inputs(device, dtype, with_grad=True,
+                                        N=77, P=3, C=C, base=20)
+    plan = ((4, 6), (3, 100), (100, 100), (1, 1))
+    for mode in MODES:
+        _check_stream(img, shapes, pts, wts, og, mode, plan, dtype,
+                      og_kernel=_misaligned(og) if C == 48 else None)
 
 
 def test_forced_auto_launches_only_the_streamed_kernels(device):

@@ -68,7 +68,8 @@ def _jax_data():
 def test_plain_stream_matches_jax_stream(monkeypatch, padding_mode,
                                          align_corners):
     """Both sides banded: JAX with 8-row bands (levels 0 and 1 in 3 and 2
-    bands), the port with the same bands and with 3x4 column tiles."""
+    bands), the port with the same bands, with 3x4 column tiles, and with
+    its default plan (44 KiB tiles: level 0 in bands of 16 rows)."""
     monkeypatch.setattr(ps, "BAND_ROWS_STREAM_SMALL", 8)
     img, shapes, pts, wts, og = _jax_data()
     shapes_tuple = tuple((int(h), int(w)) for h, w in shapes)
@@ -78,7 +79,9 @@ def test_plain_stream_matches_jax_stream(monkeypatch, padding_mode,
     want = [np.asarray(g) for g in ps.stream_bwd(*_f32(img, pts, wts, og),
                                                  **kw)]
     ti, tp, tw, tog = _torch(img, pts, wts, og)
-    for plan in ([(8, w) for _, w in shapes_tuple], [(3, 4)] * 4):
+    assert stream.pyramid_plan(shapes_tuple, 32, torch.float32)[0] == (
+        16, 20)
+    for plan in ([(8, w) for _, w in shapes_tuple], [(3, 4)] * 4, None):
         out = stream.plain_stream_fwd(ti, shapes_tuple, tp, tw, padding_mode,
                                       align_corners, plan=plan)
         np.testing.assert_allclose(out.numpy(), want_out, atol=1e-5,
@@ -172,10 +175,16 @@ def test_sample_bins_put_every_corner_in_its_tile(plan):
 
 
 def test_band_plan_of_the_256_base_pyramid():
+    """Tiles of 44 KiB (a ring of two a block, two blocks an SM): 9 x 39
+    pixels of 32 f32 channels, 9 x 78 in bf16; the 32x32 level in bands of
+    10 (f32) and 21 (bf16) rows."""
+    assert stream.TILE_BYTES == 45_056
     assert stream.pyramid_plan(BIG, 32, torch.float32) == (
-        (8, 200), (13, 128), (27, 64), (32, 32))
+        (8, 38), (8, 38), (8, 38), (10, 32))
     assert stream.pyramid_plan(BIG, 32, torch.bfloat16) == (
-        (13, 256), (27, 128), (55, 64), (32, 32))
+        (8, 77), (8, 77), (10, 64), (21, 32))
+    assert stream.num_bins(BIG, stream.pyramid_plan(
+        BIG, 32, torch.float32)) == 224 + 64 + 16 + 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -187,11 +196,11 @@ def test_band_plan_covers_the_sweep(dtype, base):
     assert stream.check_plan(shapes, plan, 32, dtype) == plan
     assert stream.check_plan(shapes, None, 32, dtype) == plan
     for (h, w), (yb, xb) in zip(shapes, plan):
-        assert stream.tile_bytes(h, w, yb, xb, 32, dtype) <= stream.SMEM_BYTES
+        assert stream.tile_bytes(h, w, yb, xb, 32, dtype) <= stream.TILE_BYTES
         # a level that fits stays whole; bands are never thinner than the
         # plan's minimum unless the level is
         if h * w * 32 * torch.empty((), dtype=dtype).element_size() <= (
-                stream.SMEM_BYTES):
+                stream.TILE_BYTES):
             assert (yb, xb) == (h, w)
         else:
             assert yb >= min(h, stream.MIN_BAND_ROWS)
@@ -214,13 +223,74 @@ def test_router_keeps_the_reference_and_detr_pyramids_resident(dtype):
 
 
 def test_router_streams_the_256_base_pyramid():
-    assert stream.use_streaming_fwd(BIG, 8, 32, torch.float32, L2)
-    assert stream.use_streaming_bwd(BIG, 8, 32, torch.float32, L2)
-    # bf16: the forward's 44.6 MB fit the L2, the backward's do not
-    assert not stream.use_streaming_fwd(BIG, 8, 32, torch.bfloat16, L2)
-    assert stream.use_streaming_bwd(BIG, 8, 32, torch.bfloat16, L2)
-    # the rule is about one image's pyramid: the L2 size moves it
-    assert not stream.use_streaming_fwd(BIG, 8, 32, torch.float32, 2 * L2)
+    """Since the refit on measured crossovers the 256-base pyramid stays on
+    K1/K2 whatever the L2 (the model's points ran faster on K1/K2 at every
+    size measured, up to 726 MB of f32 pyramid and gradient, 14 L2s), and
+    only ``FORCE`` streams it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for l2 in (L2, L2 // 4, L2 // 64):
+            assert not stream.use_streaming_fwd(BIG, 8, 32, dtype, l2)
+            assert not stream.use_streaming_bwd(BIG, 8, 32, dtype, l2)
+    with stream.forced():
+        assert stream.use_streaming_fwd(BIG, 8, 32, torch.float32, L2)
+        assert stream.use_streaming_bwd(BIG, 8, 32, torch.float32, L2)
+
+
+def _square(base):
+    return tuple((base >> i, base >> i) for i in range(4))
+
+
+def _model(h, w):
+    return tuple((-(-h // s), -(-w // s)) for s in (8, 16, 32, 64))
+
+
+# The router's sweep (chip_smoke.py phase 7d; NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md): whole calls in ms, H=8, C=32, P=4; uniform points
+# at B=4, N=10,000, and encoder layer 0's call of the full-width model at
+# batch 2 (batch 1 at 2560x4266 and 3200x5332).  Per point and dtype: K1,
+# the streamed forward, K2, the streamed backward.
+SWEEP = {
+    ("base 64", torch.float32): (0.2575, 0.4172, 1.0963, 1.2384),
+    ("base 64", torch.bfloat16): (0.2549, 0.4593, 1.1265, 1.3473),
+    ("base 128", torch.float32): (0.2934, 0.4679, 1.2602, 1.3489),
+    ("base 128", torch.bfloat16): (0.2547, 0.4636, 1.2086, 1.4168),
+    ("base 256", torch.float32): (0.3475, 0.5629, 1.9862, 1.5887),
+    ("base 256", torch.bfloat16): (0.2715, 0.5447, 2.1133, 1.7507),
+    ("base 512", torch.float32): (0.5232, 1.0899, 3.0910, 2.7393),
+    ("base 512", torch.bfloat16): (0.3811, 0.8517, 3.6535, 3.2915),
+    ("800x1333", torch.float32): (0.2752, 0.4464, 1.3107, 1.3422),
+    ("800x1333", torch.bfloat16): (0.2746, 0.4945, 1.3511, 1.4713),
+    ("1200x2000", torch.float32): (0.5967, 0.8995, 2.7021, 2.9031),
+    ("1200x2000", torch.bfloat16): (0.6062, 1.0057, 2.8428, 3.1736),
+    ("1600x2666", torch.float32): (1.0505, 1.5512, 4.7404, 5.1622),
+    ("1600x2666", torch.bfloat16): (1.0505, 1.6985, 4.9215, 5.5889),
+    ("2560x4266", torch.float32): (1.3670, 2.0591, 5.9388, 6.5994),
+    ("2560x4266", torch.bfloat16): (1.3583, 2.1531, 6.1889, 7.1260),
+    ("3200x5332", torch.float32): (2.1222, 3.3621, 9.0170, 10.2431),
+    ("3200x5332", torch.bfloat16): (2.1060, 3.4218, 9.5627, 11.1284),
+}
+SWEEP_SHAPES = {"base 64": _square(64), "base 128": _square(128),
+                "base 256": _square(256), "base 512": _square(512),
+                "800x1333": _model(800, 1333), "1200x2000": _model(1200, 2000),
+                "1600x2666": _model(1600, 2666),
+                "2560x4266": _model(2560, 4266),
+                "3200x5332": _model(3200, 5332)}
+
+
+@pytest.mark.parametrize("point,dtype", sorted(SWEEP, key=str), ids=str)
+def test_router_picks_what_the_sweep_measured(point, dtype):
+    """The rule's choice at every point of the sweep: both directions stay
+    on K1 / K2, the faster calls on the model's points everywhere; uniform
+    points from the 256-base pyramid up, where the streamed backward ran
+    faster, lose what PERF.md records (< 26%)."""
+    k1, k3, k2, k45 = SWEEP[(point, dtype)]
+    shapes = SWEEP_SHAPES[point]
+    assert not stream.use_streaming_fwd(shapes, 8, 32, dtype, L2)
+    assert not stream.use_streaming_bwd(shapes, 8, 32, dtype, L2)
+    assert k1 < k3
+    bwd_loss = k2 / min(k2, k45) - 1
+    limit = 0.26 if point in ("base 256", "base 512") else 0.0
+    assert bwd_loss <= limit, (point, dtype, bwd_loss)
 
 
 def test_forced_routes_everything_and_restores():
