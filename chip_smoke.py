@@ -58,12 +58,32 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       calls, and the router's choice beside both;
    e. one ``--pyramid big`` run of ``python -m msda_tpu_torch.benchmark``
       at N=10,000.
+8. Export and profiling (``ops/library.py``, ``utils/export.py``,
+   ``utils/profile.py``):
+   a. ``torch.library.opcheck`` of the operators
+      ``torch.ops.msda_tpu_torch.msda_fwd`` and ``msda_bwd`` on CUDA
+      tensors at the decoder's shapes, f32 and bf16, both paddings;
+   b. the full-width two-stage model's forward + postprocess exported with
+      ``utils.export.export_fn`` in f32 and bf16 and saved under
+      ``build/export_smoke/``; a second Python process, which imports
+      torch, numpy and ``msda_tpu_torch.utils.export`` only, loads the
+      artifacts and serves phase 4's 3 requests (after a warm-up), each
+      forward launching K1 12 times; its detections against the live
+      model's (labels equal, scores and boxes within 1e-5 f32, 1e-2 bf16),
+      its request times beside phase 4's;
+   c. one f32 serving request and one f32 training step under
+      ``utils.profile.trace``: the window, device busy time and idle
+      share, the 10 kernels with the most device time, and the spans
+      (encoder, decoder, postprocess; loss + matcher, backward,
+      optimizer);
+   d. ``python -m msda_tpu_torch.capture_trace --mode fwdbwd`` and
+      ``python -m msda_tpu_torch.memory_report`` in-process at N=10,000.
 
 Any failure raises, and the script exits non-zero.  The line before the
-last is a JSON summary of the kernels (launches on the main paths and per
-training step, error, time, plain time and bound at the encoder shape for
-K1/K2 and at the 256-base pyramid for the streamed kernels); the last line
-is ``{"ok": true, "device": {...}}``.
+last is a JSON summary of the kernels (launches on the main paths, the
+exported model's included, and per training step, error, time, plain time
+and bound at the encoder shape for K1/K2 and at the 256-base pyramid for
+the streamed kernels); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,15 +99,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from msda_tpu_torch import benchmark  # noqa: E402
+from msda_tpu_torch import benchmark, capture_trace, memory_report  # noqa: E402
 from msda_tpu_torch.models import DeformableDetr, attention, init_parameters, postprocess  # noqa: E402
-from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, stream  # noqa: E402
+from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, library, stream  # noqa: E402
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
 from msda_tpu_torch.parallel import detection_loss, make_train_step  # noqa: E402
-from msda_tpu_torch.utils import (msda_bound, reference_workload,  # noqa: E402
-                                  roofline_ms, touched_rows)
+from msda_tpu_torch.utils import (annotate, export_fn, msda_bound,  # noqa: E402
+                                  reference_workload, roofline_ms,
+                                  save_exported, touched_rows, trace)
 
 # Deformable DETR (Zhu et al., arXiv:2010.04159 §4, App. A): an 800x1333
 # image at strides 8/16/32/64, ResNet-50 C3-C5 + one extra level.
@@ -502,6 +523,10 @@ def check_outputs(out, det) -> None:
         if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
             raise AssertionError(f"model output {k}: {tuple(out[k].shape)}, "
                                  f"expected finite {shape}")
+    check_detections(det)
+
+
+def check_detections(det) -> None:
     for k, shape in (("scores", (BATCH, 100)), ("labels", (BATCH, 100)),
                      ("boxes", (BATCH, 100, 4))):
         if tuple(det[k].shape) != shape:
@@ -515,8 +540,9 @@ def check_outputs(out, det) -> None:
         raise AssertionError("labels out of range")
 
 
-def serve(smi: str) -> dict:
-    """Phase 4: the main path.  Returns every kernel's launch count."""
+def serve(smi: str) -> tuple[dict, dict]:
+    """Phase 4: the main path.  Returns every kernel's launch count and the
+    mean request time in ms of each dtype."""
     image_sizes = torch.tensor([IMAGE_HW] * BATCH, device=DEVICE)
     requests = [make_pyramid(20 + i) for i in range(3)]
     models = {"f32": build_model("auto", True),
@@ -524,7 +550,7 @@ def serve(smi: str) -> dict:
     torch.cuda.synchronize()
 
     reset_launches()
-    forwards = 0
+    forwards, means = 0, {}
     with torch.inference_mode():
         for name, model in models.items():
             serve_once(model, requests[0], image_sizes)  # warm-up
@@ -541,6 +567,7 @@ def serve(smi: str) -> dict:
                 forwards += 1
                 times.append(start.elapsed_time(end))
                 check_outputs(out, det)
+            means[name] = sum(times) / len(times)
             log(f"serving {name}: batch {BATCH} at {IMAGE_HW[0]}x"
                 f"{IMAGE_HW[1]}, per-request ms "
                 f"{', '.join(f'{t:.3f}' for t in times)} "
@@ -553,15 +580,16 @@ def serve(smi: str) -> dict:
         cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD})
     log(f"serving: {forwards} forwards, launches {counts} "
         f"({LAUNCHES_PER_FORWARD} K1 per forward)")
-    return counts
+    return counts, means
 
 
-def train(smi: str) -> tuple[dict, dict]:
+def train(smi: str) -> tuple[dict, dict, dict]:
     """Phase 5: the main path of the backward.  Returns every kernel's
-    launches over the training run and in one f32 step (no remat)."""
+    launches over the training run and in one f32 step (no remat), and the
+    mean step time in ms of each run."""
     pyramid, targets = make_pyramid(30), make_targets(31)
     reset_launches()
-    steps, per_step = 0, {}
+    steps, per_step, means = 0, {}, {}
     expected = {cuda_fwd.KERNEL: 0, cuda_bwd.KERNEL: 0}
     runs = (("f32", None, False, 1 + TRAIN_STEPS),
             ("bf16", torch.bfloat16, False, 1 + TRAIN_STEPS),
@@ -607,6 +635,7 @@ def train(smi: str) -> tuple[dict, dict]:
                 raise AssertionError(f"{name}: loss is not finite")
         peak = torch.cuda.max_memory_allocated() / 2**30
         timed = times[1:] or times
+        means[name] = sum(timed) / len(timed)
         log(f"train {name}: batch {BATCH} at {IMAGE_HW[0]}x{IMAGE_HW[1]}, "
             f"mean step {sum(timed) / len(timed):.3f} ms over {len(timed)} "
             f"step(s), peak allocated {peak:.3f} GiB on {smi}")
@@ -622,7 +651,7 @@ def train(smi: str) -> tuple[dict, dict]:
     check_path_launches("training", counts, expected)
     log(f"training: {steps} steps, launches {counts}; per f32 step "
         f"{per_step}")
-    return counts, per_step
+    return counts, per_step, means
 
 
 def time_ms(fn, iters: int) -> float:
@@ -1073,6 +1102,248 @@ def benchmark_row(smi: str) -> None:
     log(f"benchmark --pyramid big: {len(rows)} rows on {smi}")
 
 
+# Phase 8: the operators, the exported artifact, profiles, entry points.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+EXPORT_DIR = os.path.join(ROOT, "build", "export_smoke")
+TRACE_DIR = os.path.join(ROOT, "build", "traces")
+REQUEST_SEEDS = (20, 21, 22)  # phase 4's requests
+# exported against live detections: labels equal, scores and boxes within
+# tol * max(1, |live|) (both run the same operators in the same order)
+EXPORT_TOL = {"f32": 1e-5, "bf16": 1e-2}
+SPANS = ("encoder", "decoder", "postprocess", "loss", "backward",
+         "optimizer")
+
+# The serving process of phase 8b: it imports torch, numpy and
+# msda_tpu_torch.utils.export only, loads each artifact, serves a warm-up
+# and the requests of REQUEST_SEEDS (built as make_pyramid builds them),
+# counts the kernels' launches a forward (from the wrappers' modules that
+# the operator loaded), times each request with CUDA events, saves the
+# detections and prints a JSON line.
+_SERVE_EXPORTED = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from msda_tpu_torch.utils.export import load_exported_file
+
+spec = json.loads(sys.argv[2])
+
+
+def counts():
+    mods = {n: sys.modules.get("msda_tpu_torch.ops." + n)
+            for n in ("cuda_fwd", "cuda_bwd", "cuda_stream")}
+    out = {"msda_fwd": getattr(mods["cuda_fwd"], "LAUNCHES", 0),
+           "msda_bwd": getattr(mods["cuda_bwd"], "LAUNCHES", 0)}
+    out.update(getattr(mods["cuda_stream"], "LAUNCHES", {}))
+    return out
+
+
+def pyramid(seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(
+        (spec["batch"], h, w, c), dtype=np.float32)).cuda()
+        for (h, w), c in zip(spec["shapes"], spec["channels"])]
+
+
+result = {}
+for name in spec["models"]:
+    serve = load_exported_file(f"{spec['dir']}/{name}.pt2")
+    requests = [pyramid(seed) for seed in spec["seeds"]]
+    per_forward, times = [], []
+    with torch.inference_mode():
+        serve(*requests[0])  # warm-up: builds the kernels
+        torch.cuda.synchronize()
+        for i, pyr in enumerate(requests):
+            before = counts()["msda_fwd"]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            det = serve(*pyr)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            per_forward.append(counts()["msda_fwd"] - before)
+            torch.save({k: v.cpu() for k, v in det.items()},
+                       f"{spec['dir']}/{name}_{i}.pt")
+    result[name] = {"k1_per_forward": per_forward, "ms": times,
+                    "forwards": 1 + len(requests)}
+result["launches"] = counts()
+result["free_bytes"] = torch.cuda.mem_get_info()[0]
+print(json.dumps(result))
+"""
+
+
+def opcheck_on_card() -> None:
+    """Phase 8a: ``torch.library.opcheck`` of both operators on CUDA
+    tensors at the decoder's shapes, f32 and bf16, both paddings."""
+    case = OP_CASES["decoder"]
+    img32, pts, wts, og32 = op_inputs(**case, out_grad=True)
+    flat = library.flat_shapes(case["shapes"])
+    for dtype in (torch.float32, torch.bfloat16):
+        img, og = img32.to(dtype), og32.to(dtype)
+        for padding_mode in ("border", "zeros"):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (img, pts, wts)]
+            torch.library.opcheck(library.msda_fwd,
+                                  (*leaves, flat, padding_mode, False))
+            torch.library.opcheck(library.msda_bwd,
+                                  (img, pts, wts, og, flat, padding_mode,
+                                   False))
+            log(f"opcheck msda_fwd, msda_bwd {str(dtype)[6:]:8s} "
+                f"{padding_mode}: ok")
+
+
+def export_path(smi: str, live_ms: dict) -> dict:
+    """Phase 8b: export the full-width two-stage model's forward +
+    postprocess in f32 and bf16, serve the artifacts in a process that
+    never built the model, and hold its detections against the live
+    model's.  Returns every kernel's launch count in that process."""
+    image_sizes = torch.tensor([IMAGE_HW] * BATCH, device=DEVICE)
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    live = {}
+    for name, compute_dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        model = build_model("auto", True, compute_dtype)
+
+        def serve_fn(*pyr):
+            return postprocess(model(list(pyr), SLICE_SHAPES), top_k=100,
+                               scoring="sigmoid", image_sizes=image_sizes)
+
+        t0 = time.perf_counter()
+        blob = export_fn(serve_fn, *make_pyramid(REQUEST_SEEDS[0]))
+        seconds = time.perf_counter() - t0
+        path = os.path.join(EXPORT_DIR, f"{name}.pt2")
+        save_exported(blob, path)
+        log(f"export {name}: {seconds:.2f} s, {os.path.getsize(path)} bytes"
+            f" -> {os.path.relpath(path, ROOT)}")
+        with torch.inference_mode():
+            live[name] = [serve_fn(*make_pyramid(s)) for s in REQUEST_SEEDS]
+        del model, blob
+    # give the serving process the card's memory: this process's allocator
+    # still caches the blocks of phases 1-7, and a process short of memory
+    # frees and retries on its allocations
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spec = {"dir": EXPORT_DIR, "models": list(live), "seeds": REQUEST_SEEDS,
+            "batch": BATCH, "shapes": SLICE_SHAPES, "channels": IN_CHANNELS}
+    run = subprocess.run([sys.executable, "-c", _SERVE_EXPORTED, ROOT,
+                          json.dumps(spec)], capture_output=True, text=True,
+                         timeout=600)
+    if run.returncode != 0:
+        raise RuntimeError(f"the serving process failed (exit "
+                           f"{run.returncode}):\n{run.stderr[-4000:]}")
+    served = json.loads(run.stdout.strip().splitlines()[-1])
+    forwards = 0
+    for name, dets in live.items():
+        got = served[name]
+        if got["k1_per_forward"] != [LAUNCHES_PER_FORWARD] * len(dets):
+            raise AssertionError(f"exported {name}: K1 launches a forward "
+                                 f"{got['k1_per_forward']}, expected "
+                                 f"{LAUNCHES_PER_FORWARD}")
+        forwards += got["forwards"]
+        worst = 0.0
+        for i, want in enumerate(dets):
+            det = torch.load(os.path.join(EXPORT_DIR, f"{name}_{i}.pt"))
+            check_detections(det)
+            if not torch.equal(det["labels"], want["labels"].cpu()):
+                raise AssertionError(f"exported {name}, request {i}: the "
+                                     "labels differ from the live model's")
+            for k in ("scores", "boxes"):
+                worst = max(worst, errors(det[k], want[k].cpu())[2])
+        ok = worst <= EXPORT_TOL[name]
+        ms = got["ms"]
+        log(f"exported {name}: {len(dets)} requests, labels equal, scores/"
+            f"boxes err {worst:.3e} (tol {EXPORT_TOL[name]:g}) "
+            f"{'ok' if ok else 'FAIL'}; K1 a forward {got['k1_per_forward']};"
+            f" per-request ms {', '.join(f'{t:.3f}' for t in ms)} (mean "
+            f"{sum(ms) / len(ms):.3f}; live, phase 4: {live_ms[name]:.3f}; "
+            f"{served['free_bytes']} bytes free at the end) on {smi}")
+        if not ok:
+            raise AssertionError(f"exported {name}: detections differ from "
+                                 "the live model's")
+    counts = {k: served["launches"].get(k, 0) for k in launches()}
+    check_path_launches("export", counts, {
+        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD})
+    return counts
+
+
+def report_trace(what: str, t, unprofiled_ms: float, smi: str) -> None:
+    """Print a phase 8c capture: window, busy, idle (of the window, and of
+    the same work's time without the profiler, from phase 4 or 5), the top
+    10 kernels and the spans; fail if the profiler saw no device work."""
+    kernels = t.kernel_ms()
+    busy = t.busy_ms()
+    if not kernels or not busy > 0:
+        raise AssertionError(f"profile {what}: the trace holds no device "
+                             "work")
+    log(f"profile {what}: window {t.window_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle {100 * t.idle_share():.1f}% of the window, "
+        f"{100 * (1 - busy / unprofiled_ms):.1f}% of the "
+        f"{unprofiled_ms:.3f} ms it takes unprofiled on {smi} "
+        f"({os.path.relpath(t.path, ROOT)})")
+    for name, ms in list(kernels.items())[:10]:
+        log(f"  {ms:9.3f} ms  {name[:110]}")
+    host, device = t.span_ms(), t.span_ms(device=True)
+    log("  spans (host / device ms): " + "; ".join(
+        f"{name} {host[name]:.3f} / {device.get(name, float('nan')):.3f}"
+        for name in SPANS if name in host))
+
+
+def profile_paths(smi: str, serve_ms: dict, train_ms: dict) -> None:
+    """Phase 8c: one f32 serving request and one f32 training step, each
+    after its warm-up, under ``utils.profile.trace``; ``serve_ms`` and
+    ``train_ms`` are phases 4 and 5's mean times."""
+    image_sizes = torch.tensor([IMAGE_HW] * BATCH, device=DEVICE)
+    pyramid = make_pyramid(REQUEST_SEEDS[0])
+    model = build_model("auto", True)
+    with torch.inference_mode():
+        serve_once(model, pyramid, image_sizes)
+        torch.cuda.synchronize()
+        with trace(os.path.join(TRACE_DIR, "serve_f32")) as t:
+            out = model(pyramid, SLICE_SHAPES)
+            with annotate("postprocess"):
+                postprocess(out, top_k=100, scoring="sigmoid",
+                            image_sizes=image_sizes)
+    report_trace("serving f32 request", t, serve_ms["f32"], smi)
+    del model, out
+
+    pyramid, targets = make_pyramid(30), make_targets(31)
+    model = build_model("auto", True).train()
+    optimizer = torch.optim.AdamW(model.parameters(), lr=2e-4,
+                                  weight_decay=1e-4)
+    step = make_train_step(model, optimizer, SLICE_SHAPES,
+                           return_metrics=True, **LOSS_KW)
+    step(pyramid, targets)
+    torch.cuda.synchronize()
+    with trace(os.path.join(TRACE_DIR, "train_f32")) as t:
+        loss, _ = step(pyramid, targets)
+    if not np.isfinite(loss.item()):
+        raise AssertionError("profiled training step: loss not finite")
+    report_trace("training f32 step", t, train_ms["f32"], smi)
+
+
+def entry_points(smi: str) -> None:
+    """Phase 8d: ``capture_trace --mode fwdbwd`` and ``memory_report``
+    in-process at N=10,000; their numbers must be finite and positive."""
+    got = capture_trace.main(["--mode", "fwdbwd", "--queries", "10000",
+                              "--iters", "5", "--out",
+                              os.path.join(TRACE_DIR, "smoke_fwdbwd")])
+    numbers = [got["window_ms"], got["busy_ms"], *got["kernel_ms"].values()]
+    if not got["kernel_ms"] or not all(np.isfinite(v) and v > 0
+                                       for v in numbers):
+        raise AssertionError(f"capture_trace: numbers not finite and "
+                             f"positive: {got}")
+    mem = memory_report.main(["--queries", "10000"])
+    numbers = [mem["allocated_mb"], mem["trace_peak_mb"],
+               *(size for size, _, _ in mem["residents"])]
+    if not mem["residents"] or not all(np.isfinite(v) and v > 0
+                                       for v in numbers):
+        raise AssertionError(f"memory_report: numbers not finite and "
+                             f"positive: {mem}")
+    log(f"entry points: capture_trace busy {got['busy_ms']:.3f} ms of "
+        f"{got['window_ms']:.3f}; memory_report {mem['allocated_mb']:.1f} MB "
+        f"allocated, trace peak {mem['trace_peak_mb']:.1f} MB on {smi}")
+
+
 def main() -> None:
     smi = setup()
     errs = {cuda_fwd.KERNEL: check_kernel(),
@@ -1080,8 +1351,8 @@ def main() -> None:
             **check_stream_kernels()}
     check_model_parity()
     check_gradient_parity()
-    served = serve(smi)
-    trained, per_train_step = train(smi)
+    served, serve_ms = serve(smi)
+    trained, per_train_step, train_ms = train(smi)
     by_path = {"serve": served, "train": trained,
                **large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
@@ -1090,6 +1361,10 @@ def main() -> None:
     stream_times = time_stream_kernels(smi)
     sweep_pyramids(smi)
     benchmark_row(smi)
+    opcheck_on_card()
+    by_path["export"] = export_path(smi, serve_ms)
+    profile_paths(smi, serve_ms, train_ms)
+    entry_points(smi)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         if name in times:  # K1, K2: the encoder shape, f32

@@ -1,7 +1,13 @@
 """Model components built on the MSDA op."""
 
 from .attention import MultiscaleDeformableAttention
-from .convert import attention_state_dict_from_flax, state_dict_from_flax
+from .convert import (
+    attention_state_dict_from_flax,
+    attention_state_dict_from_hf,
+    attention_state_dict_from_torch,
+    attention_state_dict_to_torch,
+    state_dict_from_flax,
+)
 from .detr import DeformableDetr, init_parameters, postprocess
 
 __all__ = [
@@ -11,4 +17,7 @@ __all__ = [
     "postprocess",
     "state_dict_from_flax",
     "attention_state_dict_from_flax",
+    "attention_state_dict_from_torch",
+    "attention_state_dict_from_hf",
+    "attention_state_dict_to_torch",
 ]

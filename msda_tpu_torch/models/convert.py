@@ -1,4 +1,5 @@
-"""Weight bridge from the JAX (flax) models to the PyTorch modules.
+"""Weight bridges into the PyTorch modules: from the JAX (flax) models, from
+msda-triton's module and from HuggingFace's Deformable DETR attention.
 
 ``state_dict_from_flax`` turns the flax parameter tree of
 ``msda_tpu.models.DeformableDetr`` (or of any of its submodules) into a
@@ -25,8 +26,15 @@ and flax's module names to this package's attributes:
 Every flax leaf is used exactly once: a leaf the mapping does not know, or
 a module that lacks one of its leaves, raises ``ValueError``.
 
-The loaders of msda-triton and HuggingFace ``state_dict``s
-(``msda_tpu/models/convert.py``) are not ported yet.
+The loaders of ``msda_tpu/models/convert.py``, for
+:class:`msda_tpu_torch.models.MultiscaleDeformableAttention`, whose
+``state_dict`` keys are msda-triton's: :func:`attention_state_dict_from_torch`
+(an msda-triton ``state_dict``, or a submodule's inside a larger one),
+:func:`attention_state_dict_from_hf` (HuggingFace's
+``DeformableDetrMultiscaleDeformableAttention``: pretrained Deformable
+DETR and Grounding DINO weights) and :func:`attention_state_dict_to_torch`,
+the inverse of the first.  Their tensors keep the inputs' values and
+dtypes, as ``nn.Linear``'s ``[out, in]`` weights and ``[out]`` biases.
 """
 
 from __future__ import annotations
@@ -37,7 +45,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "attention_state_dict_from_flax"]
+__all__ = [
+    "state_dict_from_flax",
+    "attention_state_dict_from_flax",
+    "attention_state_dict_from_torch",
+    "attention_state_dict_from_hf",
+    "attention_state_dict_to_torch",
+]
 
 _RAW_PARAMS = ("level_embedding", "query_embedding", "reference_box_logits")
 _PROJS = ("img_input_proj", "query_input_proj", "query_output_proj")
@@ -150,3 +164,98 @@ def attention_state_dict_from_flax(params: Mapping
             f"{sorted(tree)}"
         )
     return state_dict_from_flax(tree)
+
+
+def _linear_pair(state_dict: Mapping, prefix: str, name: str):
+    """``(weight, bias)`` of the ``nn.Linear`` ``prefix + name``, copied to
+    new tensors and checked to be ``[out, in]`` and ``[out]``."""
+    wk, bk = f"{prefix}{name}.weight", f"{prefix}{name}.bias"
+    missing = [k for k in (wk, bk) if k not in state_dict]
+    if missing:
+        raise KeyError(
+            f"state_dict is missing {missing}; available keys with this "
+            f"prefix: {[k for k in state_dict if k.startswith(prefix)][:8]}"
+        )
+    w, b = (state_dict[k].detach().clone()
+            if isinstance(state_dict[k], torch.Tensor)
+            else _tensor(state_dict[k]) for k in (wk, bk))
+    if w.ndim != 2 or b.ndim != 1 or w.shape[0] != b.shape[0]:
+        raise ValueError(
+            f"{name}: expected weight [out, in] and bias [out], got "
+            f"{tuple(w.shape)} / {tuple(b.shape)}"
+        )
+    return w, b
+
+
+def attention_state_dict_from_torch(state_dict: Mapping, prefix: str = ""
+                                    ) -> dict[str, torch.Tensor]:
+    """msda-triton ``MultiscaleDeformableAttention.state_dict()`` ->
+    ``state_dict`` of :class:`msda_tpu_torch.models.MultiscaleDeformableAttention`.
+
+    The keys are the same; ``prefix`` selects a submodule inside a larger
+    ``state_dict`` (e.g. ``"decoder.layers.0.cross_attn."``, trailing dot
+    included) and is stripped.  Raises ``KeyError`` on a missing weight or
+    bias and ``ValueError`` on a weight that is not ``[out, in]`` or a bias
+    that is not ``[out]``.
+    """
+    out = {}
+    for name in _PROJS:
+        w, b = _linear_pair(state_dict, prefix, name)
+        out[f"{name}.weight"], out[f"{name}.bias"] = w, b
+    return out
+
+
+def attention_state_dict_from_hf(state_dict: Mapping, num_heads: int,
+                                 num_levels: int, num_points: int,
+                                 prefix: str = "") -> dict[str, torch.Tensor]:
+    """HuggingFace ``DeformableDetrMultiscaleDeformableAttention`` weights ->
+    ``state_dict`` of :class:`msda_tpu_torch.models.MultiscaleDeformableAttention`.
+
+    HuggingFace projects the queries with two Linears,
+    ``sampling_offsets`` (``[H*L*P*2]`` rows) and ``attention_weights``
+    (``[H*L*P]``); this package with one, ``query_input_proj``, whose
+    ``[H*L*P*3]`` rows hold (x offset, y offset, weight logit) per (head,
+    level, point).  So the rows are interleaved: row ``((h*L + l)*P + p)*3
+    + {0, 1}`` is an offset, ``+ 2`` the logit.  ``value_proj`` maps to
+    ``img_input_proj`` and ``output_proj`` to ``query_output_proj``.
+
+    Use the result with a module configured to HuggingFace's semantics:
+    ``offset_normalizer="detr"``, ``padding_mode="zeros"``,
+    ``align_corners=False``.  ``prefix`` selects the attention submodule of
+    a full model (e.g. ``"model.decoder.layers.0.encoder_attn."``).
+    """
+    H, L, P = int(num_heads), int(num_levels), int(num_points)
+    off_w, off_b = _linear_pair(state_dict, prefix, "sampling_offsets")
+    attn_w, attn_b = _linear_pair(state_dict, prefix, "attention_weights")
+    val_w, val_b = _linear_pair(state_dict, prefix, "value_proj")
+    out_w, out_b = _linear_pair(state_dict, prefix, "output_proj")
+    emb = off_w.shape[1]
+    if off_w.shape[0] != H * L * P * 2 or attn_w.shape[0] != H * L * P:
+        raise ValueError(
+            f"weight rows {off_w.shape[0]}/{attn_w.shape[0]} do not match "
+            f"num_heads*num_levels*num_points = {H}*{L}*{P}"
+        )
+    wq = torch.cat([off_w.reshape(H * L * P, 2, emb),
+                    attn_w.reshape(H * L * P, 1, emb)], 1)
+    bq = torch.cat([off_b.reshape(H * L * P, 2),
+                    attn_b.reshape(H * L * P, 1)], 1)
+    return {
+        "img_input_proj.weight": val_w,
+        "img_input_proj.bias": val_b,
+        "query_input_proj.weight": wq.reshape(H * L * P * 3, emb),
+        "query_input_proj.bias": bq.reshape(H * L * P * 3),
+        "query_output_proj.weight": out_w,
+        "query_output_proj.bias": out_b,
+    }
+
+
+def attention_state_dict_to_torch(state_dict: Mapping, prefix: str = ""
+                                  ) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`attention_state_dict_from_torch`: the module's
+    ``state_dict`` -> msda-triton's, with ``prefix`` prepended to every
+    key."""
+    out = {}
+    for name in _PROJS:
+        w, b = _linear_pair(state_dict, "", name)
+        out[f"{prefix}{name}.weight"], out[f"{prefix}{name}.bias"] = w, b
+    return out

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import level_shapes
 from ..parallel.boxes import box_cxcywh_to_xyxy
+from ..utils.profile import annotate
 from .attention import Dense, MultiscaleDeformableAttention
 
 __all__ = [
@@ -302,14 +303,20 @@ class DeformableDetr(nn.Module):
         (two-stage).
         """
         shapes = level_shapes(img_shapes)  # once, on the host
-        B = pyramid[0].shape[0]
-        device = pyramid[0].device
 
         def run(layer, *args):
             if self.remat and torch.is_grad_enabled():
                 return checkpoint(layer, *args, use_reentrant=False)
             return layer(*args)
 
+        with annotate("encoder"):
+            feats = self._encode(pyramid, shapes, run)
+        with annotate("decoder"):
+            return self._decode(feats, shapes, run)
+
+    def _encode(self, pyramid, shapes, run):
+        """The input projections and the encoder layers: [B, I, D]."""
+        B = pyramid[0].shape[0]
         feats = []
         for lvl, f in enumerate(pyramid):
             x = self.input_proj[lvl](f)
@@ -318,10 +325,14 @@ class DeformableDetr(nn.Module):
             feats.append(x)
         feats = torch.cat(feats, dim=1)  # [B, I, D]
 
-        enc_refs = make_encoder_reference_points(shapes, device)
+        enc_refs = make_encoder_reference_points(shapes, feats.device)
         for layer in self.encoder_layers:
             feats = run(layer, feats, shapes, enc_refs)
+        return feats
 
+    def _decode(self, feats, shapes, run):
+        """The proposals (two-stage), the decoder layers and the heads."""
+        B, device = feats.shape[0], feats.device
         queries = self.query_embedding[None].expand(B, -1, -1)
         if self.compute_dtype is not None:
             queries = queries.to(self.compute_dtype)

@@ -1,0 +1,177 @@
+"""The MSDA op as two ``torch.library`` custom operators.
+
+``torch.ops.msda_tpu_torch.msda_fwd`` and ``msda_bwd`` are the op's
+forward and backward as the dispatcher sees them: functional operators
+with a schema, a fake (meta) implementation, an autograd formula and one
+implementation per device.  So ``torch.export`` and ``torch.compile``
+can trace a model whose op runs the CUDA kernels (their fake tensors have
+no storage, and the kernels' wrappers launch on ``data_ptr()``), and an
+exported program calls the kernels when it is loaded in a process that
+imported this package.
+
+    msda_fwd(img, sampling_points, attention_weights, level_shapes,
+             padding_mode, align_corners) -> out
+    msda_bwd(img, sampling_points, attention_weights, out_grad,
+             level_shapes, padding_mode, align_corners)
+        -> (img_grad, sampling_points_grad, attention_weights_grad)
+
+``level_shapes`` is the flat ``[h_0, w_0, h_1, w_1, ...]``.  The
+implementations, by the device of the tensors:
+
+    CUDA: the hand-written kernels.  Each direction asks its router
+          (``stream.use_streaming_fwd`` / ``_bwd`` on the card's L2) and
+          launches K1 or K3' forward, K2 or K4' + K5' backward, through
+          the wrappers of ``cuda_fwd``, ``cuda_stream`` and ``cuda_bwd``,
+          which check the inputs, count their launches and raise on a
+          failed build or launch.  No fallback.
+    CPU:  the plain versions, ``reference.native_multiscale_deformable_attention``
+          and ``reference.native_msda_backward``: what the kernels compute,
+          so that ``torch.library.opcheck``, export and the tests run
+          without a card.  ``multiscale_deformable_attention`` never sends
+          a CPU tensor here (``impl="cuda"`` on the CPU raises); callers
+          reach it through ``torch.ops`` only.
+
+The fake implementations compute shapes and dtypes only: the forward
+``[B, N, H, C]`` in ``img``'s dtype, the backward the three inputs'
+shapes and dtypes, as both the kernels' wrappers and the plain version
+return them.  ``msda_fwd``'s autograd formula (its implementation for the
+Autograd key, a ``torch.autograd.Function``) saves only the three inputs
+(the backward rematerializes the sampling) and calls ``msda_bwd`` on a
+contiguous ``out_grad``.  It is first-order only, like the JAX package's
+``impl="pallas"``: a double backward raises (``once_differentiable``).
+
+The operators are registered through ``torch.library.Library`` (schema
+strings, per-device ``impl``), not ``torch.library.custom_op`` or
+``register_autograd``, whose Python layers add host time to each of the
+model's 12 calls a forward and 12 a backward: on an H100's host, a
+forward + backward call at the decoder's shape took 0.3 ms more with
+``register_autograd`` than with the ``autograd.Function`` before it
+(``docs/experiments/torch_dispatch_ab.py``, ``PERF.md``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import stream
+from .reference import native_msda_backward, native_multiscale_deformable_attention
+
+__all__ = ["msda_fwd", "msda_bwd", "flat_shapes"]
+
+NAMESPACE = "msda_tpu_torch"
+
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+_LIB.define(
+    "msda_fwd(Tensor img, Tensor sampling_points, Tensor attention_weights, "
+    "int[] level_shapes, str padding_mode, bool align_corners) -> Tensor")
+_LIB.define(
+    "msda_bwd(Tensor img, Tensor sampling_points, Tensor attention_weights, "
+    "Tensor out_grad, int[] level_shapes, str padding_mode, "
+    "bool align_corners) -> (Tensor, Tensor, Tensor)")
+
+
+def flat_shapes(shapes) -> list[int]:
+    """``((h, w), ...)`` -> the schema's flat ``[h_0, w_0, h_1, w_1, ...]``."""
+    return [int(v) for hw in shapes for v in hw]
+
+
+def _pairs(level_shapes) -> tuple[tuple[int, int], ...]:
+    flat = [int(v) for v in level_shapes]
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+def _fwd_cuda(img, sampling_points, attention_weights, level_shapes,
+              padding_mode, align_corners):
+    from . import cuda_fwd, cuda_stream
+
+    shapes = _pairs(level_shapes)
+    _, _, H, C = img.shape
+    if stream.use_streaming_fwd(shapes, H, C, img.dtype,
+                                stream.l2_bytes(img.device)):
+        fwd = cuda_stream.msda_stream_fwd
+    else:
+        fwd = cuda_fwd.msda_fwd
+    return fwd(img, shapes, sampling_points, attention_weights,
+               padding_mode, align_corners)
+
+
+def _bwd_cuda(img, sampling_points, attention_weights, out_grad,
+              level_shapes, padding_mode, align_corners):
+    from . import cuda_bwd, cuda_stream
+
+    shapes = _pairs(level_shapes)
+    _, _, H, C = img.shape
+    if stream.use_streaming_bwd(shapes, H, C, img.dtype,
+                                stream.l2_bytes(img.device)):
+        bwd = cuda_stream.msda_stream_bwd
+    else:
+        bwd = cuda_bwd.msda_bwd
+    return bwd(img, shapes, sampling_points, attention_weights, out_grad,
+               padding_mode, align_corners)
+
+
+def _fwd_cpu(img, sampling_points, attention_weights, level_shapes,
+             padding_mode, align_corners):
+    return native_multiscale_deformable_attention(
+        img, _pairs(level_shapes), sampling_points, attention_weights,
+        padding_mode, align_corners).contiguous()
+
+
+def _bwd_cpu(img, sampling_points, attention_weights, out_grad,
+             level_shapes, padding_mode, align_corners):
+    grads = native_msda_backward(
+        img, _pairs(level_shapes), sampling_points, attention_weights,
+        out_grad, padding_mode, align_corners)
+    return tuple(g.contiguous() for g in grads)
+
+
+_LIB.impl("msda_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("msda_bwd", _bwd_cuda, "CUDA")
+_LIB.impl("msda_fwd", _fwd_cpu, "CPU")
+_LIB.impl("msda_bwd", _bwd_cpu, "CPU")
+
+
+@torch.library.register_fake(f"{NAMESPACE}::msda_fwd", lib=_LIB)
+def _fwd_fake(img, sampling_points, attention_weights, level_shapes,
+              padding_mode, align_corners):
+    B, _, H, C = img.shape
+    return img.new_empty((B, sampling_points.shape[1], H, C))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::msda_bwd", lib=_LIB)
+def _bwd_fake(img, sampling_points, attention_weights, out_grad,
+              level_shapes, padding_mode, align_corners):
+    return (img.new_empty(img.shape),
+            sampling_points.new_empty(sampling_points.shape),
+            attention_weights.new_empty(attention_weights.shape))
+
+
+class _MSDA(torch.autograd.Function):
+    """``msda_fwd``'s autograd formula, its implementation for the
+    dispatcher's Autograd key: the forward saves only the three inputs and
+    runs the operator below autograd; the backward calls ``msda_bwd``.
+    First-order only (``once_differentiable``)."""
+
+    @staticmethod
+    def forward(ctx, img, sampling_points, attention_weights, level_shapes,
+                padding_mode, align_corners):
+        ctx.save_for_backward(img, sampling_points, attention_weights)
+        ctx.geometry = (level_shapes, padding_mode, align_corners)
+        with torch._C._AutoDispatchBelowAutograd():
+            return msda_fwd(img, sampling_points, attention_weights,
+                            level_shapes, padding_mode, align_corners)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, out_grad):
+        img, sampling_points, attention_weights = ctx.saved_tensors
+        grads = msda_bwd(img, sampling_points, attention_weights,
+                         out_grad.contiguous(), *ctx.geometry)
+        return (*grads, None, None, None)
+
+
+_LIB.impl("msda_fwd", _MSDA.apply, "Autograd")
+
+msda_fwd = torch.ops.msda_tpu_torch.msda_fwd
+msda_bwd = torch.ops.msda_tpu_torch.msda_bwd

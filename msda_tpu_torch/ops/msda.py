@@ -3,20 +3,24 @@
 The counterpart of ``msda_tpu/ops/msda.py``.  Implementations:
 
     "cuda":      the hand-written CUDA kernels, the counterpart of the JAX
-                 package's "pallas": the forward K1 (``cuda_fwd.py``) and
-                 the backward K2 (``cuda_bwd.py``), bound as one autograd
-                 node that saves only its inputs (the backward
-                 rematerializes the sampling) and is first-order only.  It
-                 takes CUDA tensors in bf16, f16 or f32 and always computes
-                 in f32.  The forward and the backward each ask their own
-                 router (``stream.use_streaming_fwd`` / ``_bwd``), as the
-                 JAX forward and backward route to ``pallas_stream``; it
-                 sends them to the streamed kernels (``cuda_stream.py``)
-                 only under ``stream.FORCE``, since K1 and K2 were the
-                 faster on the model's own points at every pyramid
-                 measured.
+                 package's "pallas", through the custom operator
+                 ``torch.ops.msda_tpu_torch.msda_fwd`` (``library.py``):
+                 the forward K1 (``cuda_fwd.py``) and, through its autograd
+                 formula, the backward K2 (``cuda_bwd.py``), which saves
+                 only the inputs (the backward rematerializes the
+                 sampling) and is first-order only.  It takes CUDA tensors
+                 in bf16, f16 or f32 and always computes in f32.  The
+                 forward and the backward each ask their own router
+                 (``stream.use_streaming_fwd`` / ``_bwd``), as the JAX
+                 forward and backward route to ``pallas_stream``; it sends
+                 them to the streamed kernels (``cuda_stream.py``) only
+                 under ``stream.FORCE``, since K1 and K2 were the faster on
+                 the model's own points at every pyramid measured.
     "reference": the plain gather-based version (``reference.py``); any
                  device, f64-capable, differentiable through autograd.
+    "fused":     an alias of "reference".  The JAX package's "fused" is an
+                 XLA patch-gather form that exists because TPU gathers are
+                 slow; it computes the same function, and is not ported.
     "auto":      "cuda" for CUDA tensors in bf16/f16/f32, "reference" for
                  CPU tensors or f64.
 
@@ -27,15 +31,14 @@ that fails to build or launch raises.
 from __future__ import annotations
 
 import torch
-from torch.autograd.function import once_differentiable
 
-from . import stream
+from .library import flat_shapes, msda_fwd
 from .reference import level_shapes, native_multiscale_deformable_attention
 
 __all__ = ["multiscale_deformable_attention"]
 
 _VALID_PADDING = ("border", "zeros")
-_VALID_IMPL = ("auto", "cuda", "reference")
+_VALID_IMPL = ("auto", "cuda", "reference", "fused")
 _VALID_DTYPES = (torch.bfloat16, torch.float16, torch.float32, torch.float64)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -82,6 +85,8 @@ def _check_inputs(img, shapes, sampling_points, attention_weights):
 def _resolve_impl(impl: str, img: torch.Tensor) -> str:
     if impl not in _VALID_IMPL:
         raise ValueError(f"impl must be one of {_VALID_IMPL}, got {impl!r}")
+    if impl == "fused":
+        return "reference"
     if impl == "auto":
         if img.is_cuda and img.dtype in _KERNEL_DTYPES:
             return "cuda"
@@ -97,47 +102,6 @@ def _resolve_impl(impl: str, img: torch.Tensor) -> str:
             f"{img.device}; use impl='auto' or 'reference' on the CPU."
         )
     return impl
-
-
-class _CudaMSDA(torch.autograd.Function):
-    """The CUDA kernels as one autograd node, the counterpart of the JAX
-    ``_msda`` custom VJP: the forward is K1 (or K3' when forced) and saves
-    only the primal inputs; the backward is K2 (or K4' + K5'), which
-    rematerializes the sampling.  Like ``impl="pallas"``, it is first-order
-    only."""
-
-    @staticmethod
-    def forward(ctx, img, sampling_points, attention_weights,
-                shapes, padding_mode, align_corners):
-        from . import cuda_fwd, cuda_stream
-
-        ctx.save_for_backward(img, sampling_points, attention_weights)
-        ctx.geometry = (shapes, padding_mode, align_corners)
-        _, _, H, C = img.shape
-        if stream.use_streaming_fwd(shapes, H, C, img.dtype,
-                                    stream.l2_bytes(img.device)):
-            fwd = cuda_stream.msda_stream_fwd
-        else:
-            fwd = cuda_fwd.msda_fwd
-        return fwd(img, shapes, sampling_points, attention_weights,
-                   padding_mode, align_corners)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, out_grad):
-        from . import cuda_bwd, cuda_stream
-
-        img, sampling_points, attention_weights = ctx.saved_tensors
-        shapes, padding_mode, align_corners = ctx.geometry
-        _, _, H, C = img.shape
-        if stream.use_streaming_bwd(shapes, H, C, img.dtype,
-                                    stream.l2_bytes(img.device)):
-            bwd = cuda_stream.msda_stream_bwd
-        else:
-            bwd = cuda_bwd.msda_bwd
-        grads = bwd(img, shapes, sampling_points, attention_weights,
-                    out_grad.contiguous(), padding_mode, align_corners)
-        return (*grads, None, None, None)
 
 
 def multiscale_deformable_attention(
@@ -169,8 +133,8 @@ def multiscale_deformable_attention(
             edge pixel, "zeros" treats outside as 0.
         align_corners: grid alignment, as in
             ``torch.nn.functional.grid_sample``.
-        impl: "auto" (default), "cuda" or "reference"; see the module
-            docstring.
+        impl: "auto" (default), "cuda", "reference" or "fused" (an alias
+            of "reference"); see the module docstring.
         precision: accepted for API parity with ``msda_tpu`` and ignored:
             the CUDA kernel always computes in f32 (and rounds once to the
             output dtype), the reference in f32 or f64.
@@ -194,10 +158,10 @@ def multiscale_deformable_attention(
     _check_inputs(img, shapes, sampling_points, attention_weights)
     impl = _resolve_impl(impl, img)
     if impl == "cuda":
-        return _CudaMSDA.apply(
+        return msda_fwd(
             img.contiguous(), sampling_points.contiguous(),
-            attention_weights.contiguous(), shapes, padding_mode,
-            bool(align_corners),
+            attention_weights.contiguous(), flat_shapes(shapes),
+            padding_mode, bool(align_corners),
         )
     return native_multiscale_deformable_attention(
         img, shapes, sampling_points, attention_weights, padding_mode,

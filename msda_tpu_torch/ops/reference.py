@@ -234,28 +234,75 @@ def native_msda_backward(
 ):
     """The three input gradients of the plain version for ``out_grad``.
 
-    ``torch.autograd.grad`` through the plain forward: the plain version of
-    the backward kernel K2, for the tests and ``chip_smoke.py``.  The
-    sampling geometry (corners, ``dx``, ``dy``) is the forward's, computed
-    in the points' dtype; everything after it (the gathers, the bilinear
-    sums over channels, the gradients) runs in f64, and each gradient is
-    rounded once to its input's dtype.  So the result is the exact
-    gradient of the function the forward computes.  (At Deformable DETR's
-    widths, the point gradients are sums over channels of terms as large
-    as ``level width * |out_grad * img|``, and an f32 sum of them, in any
-    order, keeps only about 5e-5 of the result.)  Returns
-    ``(img_grad, sampling_points_grad, attention_weights_grad)``.
+    The gradient of the plain forward, written out: the plain version of
+    the backward kernel K2, for the tests, ``chip_smoke.py`` and the CPU
+    implementation of ``torch.ops.msda_tpu_torch.msda_bwd``.  The sampling
+    geometry (corners, ``dx``, ``dy``) is the forward's, computed in the
+    points' dtype; everything after it (the gathers, the bilinear sums over
+    channels, the gradients) runs in f64, and each gradient is rounded once
+    to its input's dtype, the point gradients after the chain rule's last
+    step (``d dx / d x`` = the level's width or ``width - 1``), taken in
+    the points' compute dtype as autograd takes it.  So the result is the
+    gradient of the function the forward computes, as
+    ``torch.autograd.grad`` through it in f64 gives it (the tests hold the
+    two together).  It calls no autograd, so that it also runs inside an
+    operator's implementation, where a dispatch mode (``opcheck``'s schema
+    check) has turned autograd off.  (At Deformable DETR's widths, the point
+    gradients are sums over channels of terms as large as ``level width *
+    |out_grad * img|``, and an f32 sum of them, in any order, keeps only
+    about 5e-5 of the result.)  Returns ``(img_grad, sampling_points_grad,
+    attention_weights_grad)``.
     """
     _check_padding(padding_mode)
     f64 = torch.float64
-    with torch.enable_grad():
-        pts = sampling_points.detach().requires_grad_(True)
-        img64, wts64 = (t.detach().to(f64).requires_grad_(True)
-                        for t in (img, attention_weights))
-        geometry = _geometry(img_shapes, pts, padding_mode, align_corners,
-                             img.device)
-        out = _interpolate(img64, geometry, wts64, f64)
-        grads = torch.autograd.grad(out, (img64, pts, wts64),
-                                    out_grad.to(f64))
-    return tuple(g.to(t.dtype) for g, t in
-                 zip(grads, (img, sampling_points, attention_weights)))
+    compute_dtype = torch.promote_types(sampling_points.dtype, torch.float32)
+    shapes = level_shapes(img_shapes)
+    corners, dx, dy, masks = _geometry(shapes, sampling_points, padding_mode,
+                                       align_corners, img.device)
+    B, I, H, C = img.shape  # noqa: E741
+    _, N, _, L, P = corners[0].shape
+    dx, dy = dx.to(f64), dy.to(f64)  # [B, N, H, L, P, 1]
+    img_t = img.permute(0, 2, 1, 3).to(f64)  # [B, H, I, C]
+
+    def flat(idx):  # [B, N, H, L, P] -> [B, H, N*L*P, C] gather index
+        idx = idx.permute(0, 2, 1, 3, 4).reshape(B, H, N * L * P, 1)
+        return idx.expand(B, H, N * L * P, C)
+
+    def unflat(t):  # [B, H, N*L*P, C] -> [B, N, H, L, P, C]
+        return t.reshape(B, H, N, L, P, C).permute(0, 2, 1, 3, 4, 5)
+
+    values = [unflat(torch.gather(img_t, 2, flat(i))) for i in corners]
+    if masks is None:
+        w00 = w01 = w10 = w11 = torch.ones((), dtype=f64, device=img.device)
+    else:
+        my0, mx0, my1, mx1 = (m.to(f64) for m in masks)
+        w00, w01, w10, w11 = my0 * mx0, my0 * mx1, my1 * mx0, my1 * mx1
+    lerp = (w00 * (1.0 - dy) * (1.0 - dx), w01 * (1.0 - dy) * dx,
+            w10 * dy * (1.0 - dx), w11 * dy * dx)
+    # d lerp / d dx and d lerp / d dy, corner by corner
+    d_dx = (-w00 * (1.0 - dy), w01 * (1.0 - dy), -w10 * dy, w11 * dy)
+    d_dy = (-w00 * (1.0 - dx), -w01 * dx, w10 * (1.0 - dx), w11 * dx)
+
+    og = out_grad.to(f64)[:, :, :, None, None, :]  # [B, N, H, 1, 1, C]
+    a = attention_weights.to(f64)[..., None]  # [B, N, H, L, P, 1]
+    og_v = [(og * v).sum(-1, keepdim=True) for v in values]
+    wts_grad = sum(c * g for c, g in zip(lerp, og_v))[..., 0]
+    g_dx = a * sum(c * g for c, g in zip(d_dx, og_v))
+    g_dy = a * sum(c * g for c, g in zip(d_dy, og_v))
+
+    img_grad = torch.zeros((B, H, I, C), dtype=f64, device=img.device)
+    ao = a * og  # [B, N, H, L, P, C]
+    for idx, c in zip(corners, lerp):
+        src = (ao * c).permute(0, 2, 1, 3, 4, 5).reshape(B, H, N * L * P, C)
+        img_grad.scatter_add_(2, flat(idx), src)
+
+    # x = pt * extent - 0.5 (or pt * (extent - 1)), dx = x - floor(x)
+    hf, wf, _ = compute_level_data(shapes, compute_dtype, img.device)
+    if align_corners:
+        hf, wf = hf - 1.0, wf - 1.0
+    pts_grad = torch.cat(
+        [g_dx.to(compute_dtype) * wf[:, None, None],
+         g_dy.to(compute_dtype) * hf[:, None, None]], -1)
+    return (img_grad.permute(0, 2, 1, 3).to(img.dtype).contiguous(),
+            pts_grad.to(sampling_points.dtype),
+            wts_grad.to(attention_weights.dtype))

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profile import annotate
 from .boxes import generalized_box_iou
 from .matcher import auction_assignment, matching_cost
 
@@ -223,8 +224,9 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     and a ``torch.optim`` ``optimizer`` over its parameters.
 
     The step zeroes the gradients, runs the forward, the loss and the
-    backward, and steps the optimizer.  Every :func:`detection_loss` knob
-    is threaded through.  ``torch.optim.AdamW(params, lr,
+    backward, and steps the optimizer; the last three in the profiler spans
+    (``utils.profile.annotate``) "loss", "backward" and "optimizer".  Every
+    :func:`detection_loss` knob is threaded through.  ``torch.optim.AdamW(params, lr,
     weight_decay=1e-4)`` is the counterpart of the JAX demo's
     ``optax.adamw(lr)``: pass ``weight_decay`` explicitly, since optax's
     default is 1e-4 and torch's 1e-2.
@@ -243,9 +245,12 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     def step(pyramid, targets):
         optimizer.zero_grad(set_to_none=True)
         outputs = model(pyramid, img_shapes)
-        loss, metrics = detection_loss(outputs, targets, **loss_kw)
-        loss.backward()
-        optimizer.step()
+        with annotate("loss"):
+            loss, metrics = detection_loss(outputs, targets, **loss_kw)
+        with annotate("backward"):
+            loss.backward()
+        with annotate("optimizer"):
+            optimizer.step()
         if return_metrics:
             return loss.detach(), metrics
         return loss.detach()

@@ -37,11 +37,12 @@ import torch
 
 from msda_tpu_torch.models import DeformableDetr, init_parameters
 from msda_tpu_torch.ops import (
+    level_shapes,
     multiscale_deformable_attention,
     native_msda_backward,
     native_multiscale_deformable_attention,
 )
-from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, stream
+from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, library, stream
 from msda_tpu_torch.parallel import detection_loss
 from utils import get_functional_data
 
@@ -205,6 +206,38 @@ def test_double_backward_raises(device):
     (g,) = torch.autograd.grad(out.square().sum(), pts, create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         g.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_operators_pass_opcheck_on_the_card(device, dtype, padding_mode):
+    """The operators' CUDA implementations against their fake ones, their
+    schema, autograd registration and AOT dispatch."""
+    img, shapes, pts, wts, og = _inputs(device, dtype, with_grad=True, N=40)
+    flat = library.flat_shapes(level_shapes(shapes))
+    leaves = [t.clone().requires_grad_(True) for t in (img, pts, wts)]
+    torch.library.opcheck(library.msda_fwd,
+                          (*leaves, flat, padding_mode, False))
+    torch.library.opcheck(library.msda_bwd,
+                          (img, pts, wts, og, flat, padding_mode, False))
+
+
+def test_operators_launch_the_kernels(device):
+    """``torch.ops.msda_tpu_torch.msda_fwd`` / ``msda_bwd`` on CUDA
+    tensors launch K1 / K2 once each, with the wrappers' results."""
+    img, shapes, pts, wts, og = _inputs(device, torch.float32,
+                                        with_grad=True, N=40)
+    flat = library.flat_shapes(level_shapes(shapes))
+    before = cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES
+    out = library.msda_fwd(img, pts, wts, flat, "zeros", True)
+    grads = library.msda_bwd(img, pts, wts, og, flat, "zeros", True)
+    assert (cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert torch.equal(out, cuda_fwd.msda_fwd(img, shapes, pts, wts,
+                                              "zeros", True))
+    want = native_msda_backward(img, shapes, pts, wts, og, "zeros", True)
+    for g, w in zip(grads, want):
+        _check(g, w, w.dtype, POINT_GRAD_TOL)
 
 
 def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):

@@ -33,7 +33,7 @@ from msda_tpu_torch.ops import (  # noqa: E402
     native_msda_backward,
     native_multiscale_deformable_attention,
 )
-from msda_tpu_torch.ops import cuda_bwd, cuda_fwd  # noqa: E402
+from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, library  # noqa: E402
 from oracle import torch_msda_oracle  # noqa: E402
 from utils import get_functional_data  # noqa: E402
 
@@ -277,3 +277,111 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_bwd.msda_bwd(ti, shapes, tp, tw, tog)
     assert (cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES) == before
+
+
+def _autograd_backward(img, shapes, pts, wts, og, padding_mode,
+                       align_corners):
+    """Autograd through the plain forward, every step after the geometry in
+    f64: what ``native_msda_backward`` writes out."""
+    from msda_tpu_torch.ops.reference import _geometry, _interpolate
+
+    f64 = torch.float64
+    leaves = [pts.detach().requires_grad_(True),
+              *(t.detach().to(f64).requires_grad_(True) for t in (img, wts))]
+    geometry = _geometry(shapes, leaves[0], padding_mode, align_corners,
+                         img.device)
+    out = _interpolate(leaves[1], geometry, leaves[2], f64)
+    pg, ig, wg = torch.autograd.grad(out, leaves, og.to(f64))
+    return ig.to(img.dtype), pg, wg.to(wts.dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_plain_backward_is_autograd_through_the_plain_forward(
+        dtype, padding_mode, align_corners):
+    """The written-out plain backward equals autograd through the plain
+    forward: to f64 rounding in f64, and to one rounding of the f32 point
+    gradients in f32."""
+    img, shapes, pts, wts, og = _data(dtype)
+    args = (*_torch(img), shapes, *_torch(pts, wts, og))
+    got = native_msda_backward(*args, padding_mode, align_corners)
+    want = _autograd_backward(*args, padding_mode, align_corners)
+    tol = {np.float32: 1e-6, np.float64: 1e-12}[dtype]
+    for name, g, w in zip(("img", "points", "weights"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=tol, rtol=tol,
+                                   err_msg=f"{name} gradient")
+
+
+def _operator_args(seed=5, requires_grad=False):
+    img, shapes, pts, wts, og = get_functional_data(N=17, P=3, oob=True,
+                                                    seed=seed)
+    ti, tp, tw, tog = _torch(img, pts, wts, og)
+    if requires_grad:
+        for t in (ti, tp, tw):
+            t.requires_grad_(True)
+    return ti, tp, tw, tog, library.flat_shapes(level_shapes(shapes))
+
+
+@pytest.mark.parametrize("op", ["msda_fwd", "msda_bwd"])
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_operator_opcheck_on_cpu(op, padding_mode, align_corners):
+    """``torch.library.opcheck`` (schema, fake implementation, autograd
+    registration, AOT dispatch) on the operators' CPU implementations."""
+    if op == "msda_fwd":
+        ti, tp, tw, _, shapes = _operator_args(requires_grad=True)
+        args = (ti, tp, tw, shapes, padding_mode, align_corners)
+    else:
+        ti, tp, tw, tog, shapes = _operator_args()
+        args = (ti, tp, tw, tog, shapes, padding_mode, align_corners)
+    torch.library.opcheck(getattr(library, op), args)
+
+
+def test_operator_matches_the_plain_versions_on_cpu():
+    ti, tp, tw, tog, shapes = _operator_args(seed=6)
+    pairs = level_shapes(np.asarray(shapes).reshape(-1, 2))
+    out = library.msda_fwd(ti, tp, tw, shapes, "zeros", True)
+    assert torch.equal(out, native_multiscale_deformable_attention(
+        ti, pairs, tp, tw, "zeros", True))
+    grads = library.msda_bwd(ti, tp, tw, tog, shapes, "zeros", True)
+    for g, w in zip(grads, native_msda_backward(ti, pairs, tp, tw, tog,
+                                                "zeros", True)):
+        assert torch.equal(g, w)
+
+
+def test_operator_double_backward_raises():
+    """First-order only, like impl="pallas": the autograd formula's
+    backward is ``once_differentiable``."""
+    ti, tp, tw, _, shapes = _operator_args(seed=7)
+    tp.requires_grad_(True)
+    out = library.msda_fwd(ti, tp, tw, shapes, "border", False)
+    (g,) = torch.autograd.grad(out.square().sum(), tp, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()
+
+
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_fused_alias_matches_jax_fused(padding_mode, align_corners):
+    """impl="fused" is the port's alias of "reference"; it agrees with the
+    JAX package's impl="fused" on the same f32 inputs (1e-5 forward, 1e-4
+    gradients)."""
+    img, shapes, pts, wts, og = _data(np.float32)
+
+    def f(i, p, w):
+        return jax_msda(i, shapes, p, w, padding_mode, align_corners,
+                        impl="fused")
+
+    want_out, vjp = jax.vjp(f, img, pts, wts)
+    want_grads = vjp(og)
+    leaves = [t.requires_grad_(True) for t in _torch(img, pts, wts)]
+    out = multiscale_deformable_attention(
+        leaves[0], shapes, *leaves[1:], padding_mode, align_corners,
+        impl="fused")
+    out.backward(_torch(og)[0])
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               atol=1e-5, rtol=1e-5)
+    for name, leaf, w in zip(("img", "points", "weights"), leaves,
+                             want_grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   atol=1e-4, rtol=1e-4,
+                                   err_msg=f"{name} gradient")
