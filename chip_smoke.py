@@ -78,10 +78,31 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       optimizer);
    d. ``python -m msda_tpu_torch.capture_trace --mode fwdbwd`` and
       ``python -m msda_tpu_torch.memory_report`` in-process at N=10,000.
+9. The device mesh, detection parity and the launch-constant sweep:
+   a. ``python -m msda_tpu_torch.dryrun --devices 8 --device cpu``: one
+      sharded training step of a tiny model on 8 gloo ranks of the host;
+   b. the full-width two-stage model on a one-rank NCCL mesh through the
+      mesh path (``shard_params``, ``shard_map_multiscale_deformable_
+      attention`` in every attention module, ``make_train_step(mesh=...)``)
+      against the same model without a mesh: one request's detections
+      (labels equal, scores and boxes within 1e-6) with 12 K1 a forward,
+      then one f32 SGD step's loss and every updated parameter within 1e-6
+      relative (of the tensor's largest value, at least 1e-3 of the
+      model's largest), 12 K1 and 12 K2 a step;
+   c. HF Deformable DETR and Grounding DINO at their published
+      configurations (``detection_parity.run_parity(size="full")``), f32,
+      stock against patched with the port's op: 12 K1 a patched forward,
+      top-10 detections identical, boxes within 1e-3, each side's request
+      time;
+   d. ``autotune.sweep`` with two candidates a constant (K1/K2's
+      ``MSDA_WARPS_PER_BLOCK``; the streamed kernels' ``STREAM_SLICE``,
+      ``FWD_``/``BWD_CHUNKS_PER_BLOCK``), a short run: each variant builds,
+      agrees with its plain version and is timed.
 
 Any failure raises, and the script exits non-zero.  The line before the
 last is a JSON summary of the kernels (launches on the main paths, the
-exported model's included, and per training step, error, time, plain time
+exported model's, the mesh path's and the HF models' included, and per
+training step, error, time, plain time
 and bound at the encoder shape for K1/K2 and at the 256-base pyramid for
 the streamed kernels); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -99,13 +120,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from msda_tpu_torch import benchmark, capture_trace, memory_report  # noqa: E402
+from msda_tpu_torch import autotune, benchmark, capture_trace, detection_parity, memory_report  # noqa: E402
 from msda_tpu_torch.models import DeformableDetr, attention, init_parameters, postprocess  # noqa: E402
 from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, library, stream  # noqa: E402
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
-from msda_tpu_torch.parallel import detection_loss, make_train_step  # noqa: E402
+from msda_tpu_torch.parallel import detection_loss, make_mesh, make_train_step, shard_params  # noqa: E402
 from msda_tpu_torch.utils import (annotate, export_fn, msda_bound,  # noqa: E402
                                   reference_workload, roofline_ms,
                                   save_exported, touched_rows, trace)
@@ -426,10 +447,10 @@ def make_targets(seed: int):
 
 
 def build_model(impl: str, two_stage: bool, compute_dtype=None,
-                remat=False):
+                remat=False, mesh=None):
     model = DeformableDetr(**MODEL, two_stage=two_stage, impl=impl,
                            compute_dtype=compute_dtype, remat=remat,
-                           device=DEVICE)
+                           device=DEVICE, mesh=mesh)
     return init_parameters(model, torch.Generator().manual_seed(0)).eval()
 
 
@@ -1344,6 +1365,186 @@ def entry_points(smi: str) -> None:
         f"allocated, trace peak {mem['trace_peak_mb']:.1f} MB on {smi}")
 
 
+# Phase 9: the device mesh, HF detection parity, the launch-constant sweep.
+# One card: NCCL takes one rank a card, so the card runs a one-rank mesh
+# (the split itself is held to JAX by tests/test_torch_sharding.py on CPU
+# ranks).  The mesh step uses SGD: AdamW's first step divides each gradient
+# by its own size, which would turn the rounding of near-zero gradients
+# (K2's f32 atomics add in a run-dependent order) into full-size updates.
+MESH_TOL = 1e-6
+MESH_LR = 2e-4
+HF_PATHS = {"deformable-detr": "hf_deformable_detr",
+            "grounding-dino": "hf_grounding_dino"}
+
+
+def dryrun_cpu(smi: str) -> None:
+    """Phase 9a: ``python -m msda_tpu_torch.dryrun`` with 8 gloo ranks on
+    the host's CPU."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "msda_tpu_torch.dryrun",
+                          "--devices", "8", "--device", "cpu", "--timeout",
+                          "300"], capture_output=True, text=True,
+                         timeout=360, cwd=ROOT)
+    line = (run.stdout.strip().splitlines() or [""])[-1]
+    if run.returncode != 0 or not line.startswith(
+            "dryrun_multichip(8): mesh dp=2 sp=2 tp=2, one train step OK"):
+        raise RuntimeError(f"the dry run failed (exit {run.returncode}): "
+                           f"{line}\n{run.stderr[-4000:]}")
+    log(f"dry run, 8 gloo ranks on the host: {line} "
+        f"({time.perf_counter() - t0:.1f} s; host of {smi})")
+
+
+def _mesh_serve(model, pyramid, image_sizes):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    before = cuda_fwd.LAUNCHES
+    start.record()
+    out, det = serve_once(model, pyramid, image_sizes)
+    end.record()
+    torch.cuda.synchronize()
+    return det, cuda_fwd.LAUNCHES - before, start.elapsed_time(end)
+
+
+def mesh_path(smi: str) -> dict:
+    """Phase 9b: the full-width two-stage model on a one-rank NCCL mesh,
+    through the mesh path (``shard_params``, the attention modules'
+    ``shard_map_multiscale_deformable_attention``, ``make_train_step(
+    mesh=...)``), against the same model without a mesh: one request's
+    detections, then one f32 SGD step's loss and updated parameters.
+    Returns every kernel's launches on the mesh path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    store = tempfile.mkdtemp(prefix="msda_mesh_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh({"dp": 1, "sp": 1, "tp": 1}, device_type="cuda")
+        image_sizes = torch.tensor([IMAGE_HW] * BATCH, device=DEVICE)
+        pyramid = make_pyramid(REQUEST_SEEDS[0])
+        plain = build_model("auto", True)
+        sharded = shard_params(build_model("auto", True, mesh=mesh), mesh)
+        with torch.inference_mode():
+            serve_once(plain, pyramid, image_sizes)  # warm-ups
+            reset_launches()
+            serve_once(sharded, pyramid, image_sizes)
+            served = launches()
+            times = {"mesh": [], "unsharded": []}
+            for _ in range(3):  # in turns: the request is host-bound
+                before = launches()
+                got, k1, ms = _mesh_serve(sharded, pyramid, image_sizes)
+                after = launches()
+                served = {k: served[k] + after[k] - before[k]
+                          for k in served}
+                times["mesh"].append(ms)
+                want, _, ms = _mesh_serve(plain, pyramid, image_sizes)
+                times["unsharded"].append(ms)
+        check_detections(got)
+        worst = max(errors(got[k], want[k])[2] for k in ("scores", "boxes"))
+        ok = torch.equal(got["labels"], want["labels"]) and worst <= MESH_TOL
+        log(f"mesh (dp=1 sp=1 tp=1, NCCL) request: labels "
+            f"{'equal' if torch.equal(got['labels'], want['labels']) else 'DIFFER'}"
+            f", scores/boxes err {worst:.3e} (tol {MESH_TOL:g}); K1 {k1} a "
+            f"forward; ms in turns, mesh "
+            f"{', '.join(f'{t:.3f}' for t in times['mesh'])}, unsharded "
+            f"{', '.join(f'{t:.3f}' for t in times['unsharded'])} on {smi}")
+        if not ok or k1 != LAUNCHES_PER_FORWARD:
+            raise AssertionError("the mesh path's detections or launches "
+                                 "differ from the unsharded model's")
+
+        pyramid, targets = make_pyramid(30), make_targets(31)
+        results = {}
+        for name, model in (("mesh", sharded.train()),
+                            ("unsharded", plain.train())):
+            step = make_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=MESH_LR),
+                SLICE_SHAPES, mesh=mesh if name == "mesh" else None,
+                **LOSS_KW)
+            before = launches()
+            loss = step(pyramid, targets).item()
+            torch.cuda.synchronize()
+            counts = launches()
+            results[name] = (loss, {k: counts[k] - before[k]
+                                    for k in counts})
+        loss_err = abs(results["mesh"][0] - results["unsharded"][0]) / abs(
+            results["unsharded"][0])
+        # each tensor's difference over its largest value, at least
+        # GRAD_FLOOR of the model's largest: a tensor that starts at zero
+        # (the MSDA query projections' weights) holds lr x its gradient
+        # after the step, whose last bits K2's atomic order sets
+        floor = GRAD_FLOOR * max(q.abs().max().item()
+                                 for q in plain.parameters())
+        worst, worst_name, strict = -1.0, "", 0.0
+        for (name, p), q in zip(sharded.named_parameters(),
+                                plain.parameters()):
+            diff = (p - q).abs().max().item()
+            largest = q.abs().max().item()
+            strict = max(strict, diff / largest if largest else diff)
+            err = diff / max(largest, floor)
+            if err > worst:
+                worst, worst_name = err, name
+        step_counts = results["mesh"][1]
+        launched = (step_counts[cuda_fwd.KERNEL],
+                    step_counts[cuda_bwd.KERNEL])
+        log(f"mesh train step (f32, SGD lr {MESH_LR:g}): loss "
+            f"{results['mesh'][0]:.6f}, unsharded "
+            f"{results['unsharded'][0]:.6f} (rel {loss_err:.2e}); "
+            f"parameters worst {worst:.2e} of the tensor's largest, at "
+            f"least {GRAD_FLOOR:g} of the model's largest ({worst_name}; "
+            f"tol {MESH_TOL:g}; {strict:.2e} of the tensor's largest "
+            f"alone); K1 {launched[0]} K2 "
+            f"{launched[1]} a step on {smi}")
+        if not (loss_err <= MESH_TOL and worst <= MESH_TOL and launched == (
+                LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD)):
+            raise AssertionError("the mesh step differs from the unsharded "
+                                 "step")
+        counts = {k: served[k] + step_counts[k] for k in served}
+        # 4 forwards (a warm-up and 3 requests) and one step
+        check_path_launches("mesh", counts, {
+            cuda_fwd.KERNEL: 5 * LAUNCHES_PER_FORWARD,
+            cuda_bwd.KERNEL: LAUNCHES_PER_FORWARD})
+        del plain, sharded
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def hf_parity(smi: str) -> dict:
+    """Phase 9c: HF Deformable DETR and Grounding DINO at their published
+    configurations, f32, stock against patched with the port's op
+    (``detection_parity.run_parity``, one 800x1333 image, a warm-up and 3
+    timed requests a side).  Returns every kernel's launches a model."""
+    by_path = {}
+    for model, path in HF_PATHS.items():
+        reset_launches()
+        res = detection_parity.run_parity(model, "full", "cuda")
+        counts = launches()
+        log(f"HF {model} (full, f32): {json.dumps(res)} on {smi}")
+        if not (res["k1_launches_per_forward"] == LAUNCHES_PER_FORWARD
+                and res["topk_detections_identical"]
+                and res["max_abs_boxes_diff"] < detection_parity.BOXES_TOL):
+            raise AssertionError(f"HF {model}: parity failed")
+        check_path_launches(path, counts, {
+            cuda_fwd.KERNEL: 4 * LAUNCHES_PER_FORWARD})
+        by_path[path] = counts
+    return by_path
+
+
+def autotune_short(smi: str) -> None:
+    """Phase 9d: ``autotune.sweep`` with two candidates a constant, a short
+    run: each variant builds, agrees with the plain version and is
+    timed."""
+    for stream_ in (False, True):
+        results = autotune.sweep(stream_, iters=5, per_constant=2,
+                                 log=lambda m: log(f"  autotune {m}"))
+        failed = [(k, label) for k, times in results.items()
+                  for label, ms in times.items() if ms is None]
+        if failed:
+            raise AssertionError(f"autotune variants failed: {failed}")
+    log(f"autotune: every variant built, checked and timed on {smi}")
+
+
 def main() -> None:
     smi = setup()
     errs = {cuda_fwd.KERNEL: check_kernel(),
@@ -1365,6 +1566,10 @@ def main() -> None:
     by_path["export"] = export_path(smi, serve_ms)
     profile_paths(smi, serve_ms, train_ms)
     entry_points(smi)
+    dryrun_cpu(smi)
+    by_path["mesh"] = mesh_path(smi)
+    by_path.update(hf_parity(smi))
+    autotune_short(smi)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         if name in times:  # K1, K2: the encoder shape, f32

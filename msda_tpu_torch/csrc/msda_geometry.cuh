@@ -23,7 +23,10 @@
 #include <cuda_runtime.h>
 
 #define MSDA_MAX_LEVELS 16
+// warps a block of K1 and K2; a build may set it (-D, msda_tpu_torch.autotune)
+#ifndef MSDA_WARPS_PER_BLOCK
 #define MSDA_WARPS_PER_BLOCK 8
+#endif
 #define MSDA_FULL_MASK 0xffffffffu
 
 namespace msda {

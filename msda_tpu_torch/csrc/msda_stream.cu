@@ -101,14 +101,27 @@
 #include "msda_geometry.cuh"
 #include "msda_lanes.cuh"
 
+// The launch constants below may be set by a build (-D; each is guarded
+// by #ifndef), as msda_tpu_torch.autotune sweeps them; STREAM_TILE_BYTES
+// may not, since ops/stream.py plans the tiles with the same number.
+#ifndef STREAM_THREADS
 #define STREAM_THREADS 256
+#endif
 #define STREAM_WARPS (STREAM_THREADS / 32)
 // blocks of the streamed kernels an SM holds: two rings of two tiles
+#ifndef STREAM_BLOCKS_PER_SM
 #define STREAM_BLOCKS_PER_SM 2
+#endif
 // samples of a slice, whose records a block holds at once
+#ifndef STREAM_SLICE
 #define STREAM_SLICE 512
+#endif
 // keys of the backward's counting sort (tile pixels, shifted to fit)
+#ifndef SORT_KEYS
 #define SORT_KEYS 1024
+#endif
+static_assert(STREAM_THREADS % 32 == 0 && SORT_KEYS % STREAM_THREADS == 0,
+              "STREAM_THREADS: whole warps, dividing SORT_KEYS");
 // shared memory of one staged tile (ops/stream.py TILE_BYTES): two blocks
 // of two tiles and the backward's slice buffers fill an SM's 228 KB
 #define STREAM_TILE_BYTES 45056
@@ -116,10 +129,18 @@
 // bytes of staged tile, and the chunks per block (the best of the values
 // timed at the 256-base pyramid and the 1600x2666 model call, f32 and
 // bf16: PERF.md)
+#ifndef FWD_SAMPLE_BYTES
 #define FWD_SAMPLE_BYTES 256
+#endif
+#ifndef BWD_SAMPLE_BYTES
 #define BWD_SAMPLE_BYTES 768
+#endif
+#ifndef FWD_CHUNKS_PER_BLOCK
 #define FWD_CHUNKS_PER_BLOCK 4
+#endif
+#ifndef BWD_CHUNKS_PER_BLOCK
 #define BWD_CHUNKS_PER_BLOCK 8
+#endif
 #define BIN_THREADS 256
 #define BIN_QUERIES 128
 // bins of one (b, h) that a binning block counts in shared memory (48 KB)

@@ -12,6 +12,16 @@ msda-triton divides the (x, y) offsets by ``img_shapes``, which is in
 **(height, width)** order, so x-offsets are normalized by the height and
 y-offsets by the width.  ``offset_normalizer="reference"`` (default) keeps
 that; ``offset_normalizer="detr"`` uses the original paper's (w, h) order.
+
+With a device ``mesh`` (``parallel.sharding``), the module runs its share:
+the rank's block of queries (sp) and of heads (tp).  The two input
+projections are column-parallel (a contiguous block of their output
+features is a block of whole heads: the layouts are head-major), the op
+runs on the local block (``shard_map_multiscale_deformable_attention``),
+and the output projection is row-parallel: its partial sums are summed
+over tp, its bias added once after that, and the queries gathered over
+sp.  A projection cut by ``parallel.shard_params`` holds its block; an
+uncut one is sliced here.
 """
 
 from __future__ import annotations
@@ -21,6 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import level_shapes, multiscale_deformable_attention
+from ..parallel.sharding import (axis, gather_over,
+                                 shard_map_multiscale_deformable_attention,
+                                 sum_over)
 
 __all__ = ["Dense", "MultiscaleDeformableAttention"]
 
@@ -44,6 +57,26 @@ class Dense(nn.Linear):
                                                        self.weight.dtype)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
+    def block(self, x: torch.Tensor, dim: int, rank: int, parts: int,
+              bias: bool = True) -> torch.Tensor:
+        """``x`` through block ``rank`` of ``parts`` of the layer: a block
+        of its output features (``dim=0``, column-parallel) or of its input
+        features (``dim=1``, row-parallel: a partial sum, with no bias
+        unless ``bias``), in ``forward``'s dtype policy.  A weight that
+        ``parallel.shard_params`` cut is the block already; a whole one is
+        sliced here."""
+        size = (self.out_features if dim == 0 else self.in_features) // parts
+
+        def cut(t, d):
+            return t if t.shape[d] == size else t.narrow(d, rank * size, size)
+
+        weight = cut(self.weight, dim)
+        dt = self.compute_dtype or torch.promote_types(x.dtype, weight.dtype)
+        b = None
+        if bias:
+            b = (cut(self.bias, 0) if dim == 0 else self.bias).to(dt)
+        return F.linear(x.to(dt), weight.to(dt), b)
+
 
 class MultiscaleDeformableAttention(nn.Module):
     """Multiscale deformable attention with input/output projections.
@@ -66,6 +99,10 @@ class MultiscaleDeformableAttention(nn.Module):
             the projected pyramid run in it; the sampling-point and weight
             math stays in at least f32.
         device: where the parameters are made.
+        mesh: ``None``, or a device mesh with axes among ("dp", "sp",
+            "tp") (``parallel.make_mesh``): the module then takes this
+            rank's dp block of the batch and runs its share of the queries
+            (sp) and heads (tp), which must divide them.
     """
 
     def __init__(
@@ -81,6 +118,7 @@ class MultiscaleDeformableAttention(nn.Module):
         impl: str = "auto",
         compute_dtype: torch.dtype | None = None,
         device=None,
+        mesh=None,
     ):
         super().__init__()
         if hidden_dim % num_heads != 0:
@@ -102,6 +140,7 @@ class MultiscaleDeformableAttention(nn.Module):
         self.align_corners = align_corners
         self.offset_normalizer = offset_normalizer
         self.impl = impl
+        self.mesh = mesh
         H, L, P = num_heads, num_levels, num_points
         self.img_input_proj = Dense(emb_dim, hidden_dim, compute_dtype, device)
         self.query_input_proj = Dense(emb_dim, H * L * P * 3, compute_dtype,
@@ -121,14 +160,32 @@ class MultiscaleDeformableAttention(nn.Module):
             ``[B, N, emb_dim]``.
         """
         B, I, _ = img.shape  # noqa: E741
-        N = queries.shape[1]
         H, L, P = self.num_heads, self.num_levels, self.num_points
-        C = self.hidden_dim
+        Dh = self.hidden_dim // H
+        mesh = self.mesh
+        if mesh is None:
+            def project(layer, x):
+                return layer(x)
+        else:
+            tp, t, _ = axis(mesh, "tp")
+            sp, s, _ = axis(mesh, "sp")
+            N = queries.shape[1]
+            if H % tp or N % sp:
+                raise ValueError(
+                    f"a mesh with tp={tp} and sp={sp} needs the heads ({H}) "
+                    f"divisible by tp and the queries ({N}) by sp")
+            H, n = H // tp, N // sp
+            queries = queries[:, s * n:(s + 1) * n]
+            reference_points = reference_points[:, s * n:(s + 1) * n]
+
+            def project(layer, x):  # column-parallel: this rank's heads
+                return layer.block(x, 0, t, tp)
+        N = queries.shape[1]
 
         # offsets and attention logits in at least f32 even under bf16:
         # bf16's 8 mantissa bits would quantize absolute sampling positions
         # to ~1/256 of a level (promote, so that f64 stays f64)
-        q = self.query_input_proj(queries)
+        q = project(self.query_input_proj, queries)
         q = q.to(torch.promote_types(q.dtype, torch.float32))
         q = q.reshape(B, N, H, L, P, 3)
         offsets, logits = q[..., :2], q[..., 2]
@@ -136,7 +193,7 @@ class MultiscaleDeformableAttention(nn.Module):
             logits.reshape(B, N, H, L * P), dim=-1
         ).reshape(B, N, H, L, P)
 
-        img_p = self.img_input_proj(img).reshape(B, I, H, C // H)
+        img_p = project(self.img_input_proj, img).reshape(B, I, H, Dh)
 
         shapes = level_shapes(img_shapes)
         last = reference_points.shape[-1]
@@ -164,8 +221,21 @@ class MultiscaleDeformableAttention(nn.Module):
                 f"but got {last}."
             )
 
-        out = multiscale_deformable_attention(
-            img_p, shapes, sampling_points, attention_weights,
+        if mesh is None:
+            out = multiscale_deformable_attention(
+                img_p, shapes, sampling_points, attention_weights,
+                self.padding_mode, self.align_corners, impl=self.impl,
+            )
+            return self.query_output_proj(out.reshape(B, N, H * Dh))
+
+        out = shard_map_multiscale_deformable_attention(
+            mesh, img_p, shapes, sampling_points, attention_weights,
             self.padding_mode, self.align_corners, impl=self.impl,
-        )
-        return self.query_output_proj(out.reshape(B, N, C))
+        ).reshape(B, N, H * Dh)
+        if tp == 1:
+            y = self.query_output_proj(out)
+        else:  # row-parallel: partial sums over tp, the bias added once
+            y = sum_over(self.query_output_proj.block(out, 1, t, tp,
+                                                      bias=False), mesh, "tp")
+            y = y + self.query_output_proj.bias.to(y.dtype)
+        return gather_over(y, mesh, "sp", 1)

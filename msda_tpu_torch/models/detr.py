@@ -11,8 +11,12 @@ JAX model's parameters.
 
 ``remat=True`` recomputes each encoder and decoder layer in the backward
 instead of keeping its activations (``torch.utils.checkpoint``, the
-counterpart of the JAX model's ``nn.remat``).  The JAX model's device mesh
-(``mesh``) is a multi-device feature that is not ported yet.
+counterpart of the JAX model's ``nn.remat``).
+
+``mesh`` (``parallel.make_mesh``) runs the model on a device mesh: each
+rank takes its dp block of the batch, and every deformable attention
+module runs its share of the queries (sp) and heads (tp); the rest of the
+model is replicated.  ``parallel.make_train_step(mesh=...)`` trains it.
 """
 
 from __future__ import annotations
@@ -164,13 +168,14 @@ class DeformableEncoderLayer(nn.Module):
 
     def __init__(self, emb_dim: int, num_levels: int, num_heads: int,
                  num_points: int, ffn_dim: int = 1024, compute_dtype=None,
-                 impl: str = "auto", device=None):
+                 impl: str = "auto", device=None, mesh=None):
         super().__init__()
         self.msda = MultiscaleDeformableAttention(
             emb_dim=emb_dim, hidden_dim=emb_dim, num_levels=num_levels,
             num_heads=num_heads, num_points=num_points,
             padding_mode="border", align_corners=False,
             compute_dtype=compute_dtype, impl=impl, device=device,
+            mesh=mesh,
         )
         self.norm_0 = LayerNorm(emb_dim, compute_dtype, device)
         self.ffn = _FFN(emb_dim, ffn_dim, compute_dtype, device)
@@ -189,7 +194,7 @@ class DeformableDecoderLayer(nn.Module):
 
     def __init__(self, emb_dim: int, num_levels: int, num_heads: int,
                  num_points: int, ffn_dim: int = 1024, compute_dtype=None,
-                 impl: str = "auto", device=None):
+                 impl: str = "auto", device=None, mesh=None):
         super().__init__()
         self.self_attn = MultiHeadSelfAttention(emb_dim, num_heads,
                                                 compute_dtype, device)
@@ -199,6 +204,7 @@ class DeformableDecoderLayer(nn.Module):
             num_heads=num_heads, num_points=num_points,
             padding_mode="border", align_corners=False,
             compute_dtype=compute_dtype, impl=impl, device=device,
+            mesh=mesh,
         )
         self.norm_1 = LayerNorm(emb_dim, compute_dtype, device)
         self.ffn = _FFN(emb_dim, ffn_dim, compute_dtype, device)
@@ -232,7 +238,8 @@ class DeformableDetr(nn.Module):
     in bf16 with f32 parameters; sampling geometry, reference-box math and
     the prediction heads stay f32.  ``remat=True`` recomputes each encoder
     and decoder layer in the backward instead of keeping its activations
-    (while gradients are enabled; the results are the same).
+    (while gradients are enabled; the results are the same).  ``mesh``
+    runs it on a device mesh (the module docstring).
     """
 
     def __init__(
@@ -252,6 +259,7 @@ class DeformableDetr(nn.Module):
         compute_dtype: torch.dtype | None = None,
         impl: str = "auto",
         device=None,
+        mesh=None,
     ):
         super().__init__()
         L = len(in_channels)
@@ -265,7 +273,8 @@ class DeformableDetr(nn.Module):
         cd = compute_dtype
         layer_args = dict(emb_dim=emb_dim, num_levels=L, num_heads=num_heads,
                           num_points=num_points, ffn_dim=ffn_dim,
-                          compute_dtype=cd, impl=impl, device=device)
+                          compute_dtype=cd, impl=impl, device=device,
+                          mesh=mesh)
 
         self.level_embedding = nn.Parameter(
             torch.zeros(L, emb_dim, device=device))

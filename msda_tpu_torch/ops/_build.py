@@ -8,6 +8,12 @@ sources only, into ``build/kernels/`` beside the package (a directory that
 ``.gitignore`` lists).  A library is rebuilt when its source or a shared
 header (``csrc/*.cuh``) is newer than it.  Importing this module needs
 neither ``nvcc`` nor a GPU.
+
+``defines`` builds a variant: the sources' compile-time launch constants
+(``#ifndef`` guards in ``csrc/``) set by ``-D`` flags, into
+``lib<name>-<tag>.so``, where the tag lists them (``variant``).  The
+default build has no ``-D`` flag.  ``python -m msda_tpu_torch.autotune``
+sweeps them.
 """
 
 from __future__ import annotations
@@ -19,10 +25,11 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Mapping
 
 __all__ = [
     "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build",
-    "load_library", "build_log",
+    "load_library", "build_log", "variant",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -72,35 +79,47 @@ def _stale(lib: Path, sources: list[Path]) -> bool:
     return any(s.stat().st_mtime > built for s in sources)
 
 
-def _compile(names: list[str]) -> None:
-    """Compile each ``csrc/<name>.cu`` into ``lib<name>.so`` atomically, one
-    ``nvcc`` per source, all started together; keep each log beside it."""
+def variant(name: str, defines: Mapping[str, int] | None = None) -> str:
+    """The library stem of ``name`` built with ``defines``: ``name`` itself
+    without any, else ``name-K1=V1-K2=V2`` in the order of the keys."""
+    if not defines:
+        return name
+    return "-".join([name, *(f"{k}={v}" for k, v in sorted(defines.items()))])
+
+
+def _compile(jobs: list[tuple[str, Mapping[str, int] | None]]) -> None:
+    """Compile each ``(name, defines)``: ``csrc/<name>.cu`` into
+    ``lib<variant>.so`` atomically, one ``nvcc`` per library, all started
+    together; keep each log beside it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    jobs = []
+    procs = []
     try:
-        for name in names:
-            fd, tmp = tempfile.mkstemp(prefix=f".{name}.", suffix=".so",
+        for name, defines in jobs:
+            stem = variant(name, defines)
+            fd, tmp = tempfile.mkstemp(prefix=f".{stem}.", suffix=".so",
                                        dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-            jobs.append((name, tmp, cmd, subprocess.Popen(
+            flags = [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp,
+                   str(CSRC_DIR / f"{name}.cu")]
+            procs.append((stem, tmp, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
         failed = []
-        for name, tmp, cmd, proc in jobs:
+        for stem, tmp, cmd, proc in procs:
             out, err = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed to build {name}.cu (exit "
+                failed.append(f"nvcc failed to build {stem} (exit "
                               f"{proc.returncode}):\n$ {' '.join(cmd)}\n"
                               f"{err}{out}")
                 continue
-            os.replace(tmp, BUILD_DIR / f"lib{name}.so")
-            (BUILD_DIR / f"{name}.log").write_text(err + out)
+            os.replace(tmp, BUILD_DIR / f"lib{stem}.so")
+            (BUILD_DIR / f"{stem}.log").write_text(err + out)
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:
-        for _, tmp, _, proc in jobs:
+        for _, tmp, _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -108,30 +127,40 @@ def _compile(names: list[str]) -> None:
                 os.unlink(tmp)
 
 
-def build(names) -> None:
+def build(names, defines=None) -> None:
     """Build the libraries of ``names`` that are missing or older than their
-    sources, concurrently.  Raises ``RuntimeError`` with nvcc's output when
-    a build fails."""
+    sources, concurrently.  ``defines``: one mapping of constants for every
+    name, or a sequence of them, one a name (variants of one source side by
+    side).  Raises ``RuntimeError`` with nvcc's output when a build
+    fails."""
+    names = list(names)
+    if defines is None or isinstance(defines, Mapping):
+        defines = [defines] * len(names)
     with _LOCK:
-        stale = [n for n in names
-                 if _stale(BUILD_DIR / f"lib{n}.so", _sources(n))]
+        stale = [(n, d) for n, d in zip(names, defines, strict=True)
+                 if _stale(BUILD_DIR / f"lib{variant(n, d)}.so",
+                           _sources(n))]
         if stale:
             _compile(stale)
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Load ``lib<name>.so``, building it from ``csrc/<name>.cu`` first when
-    it is missing or older than its sources.  Raises ``RuntimeError`` with
-    nvcc's output when the build fails."""
+def load_library(name: str, defines: Mapping[str, int] | None = None
+                 ) -> ctypes.CDLL:
+    """Load ``lib<name>.so`` (with ``defines``: the variant's library),
+    building it from ``csrc/<name>.cu`` first when it is missing or older
+    than its sources.  Raises ``RuntimeError`` with nvcc's output when the
+    build fails."""
+    stem = variant(name, defines)
     with _LOCK:
-        if name not in _LOADED:
-            build([name])
-            _LOADED[name] = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
-        return _LOADED[name]
+        if stem not in _LOADED:
+            build([name], defines)
+            _LOADED[stem] = ctypes.CDLL(str(BUILD_DIR / f"lib{stem}.so"))
+        return _LOADED[stem]
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Mapping[str, int] | None = None) -> str:
     """nvcc's output (``-Xptxas -v`` register and spill report) from the
-    last build of ``name``, or "" when the library was built elsewhere."""
-    path = BUILD_DIR / f"{name}.log"
+    last build of ``name`` (with ``defines``), or "" when the library was
+    built elsewhere."""
+    path = BUILD_DIR / f"{variant(name, defines)}.log"
     return path.read_text() if path.exists() else ""

@@ -1,5 +1,5 @@
 """Detection loss and train step (PyTorch counterpart of
-``msda_tpu/parallel/train.py``), single device.
+``msda_tpu/parallel/train.py``), on one device or a device mesh.
 
 ``detection_loss`` is the published Deformable DETR recipe: every decoder
 layer's prediction pays a classification loss (softmax CE with background,
@@ -8,20 +8,32 @@ auction matcher or a fixed teacher-forced matching, and the two-stage
 encoder proposals pay their own objectness + box loss.  ``make_train_step``
 builds the eager step: forward, loss, backward, optimizer step.
 
-The JAX function's ``mesh`` argument, ``replicate_params`` and
-``shard_params`` are the multi-device form and are not ported.
+On a mesh (``make_train_step(mesh=...)``), one step equals one step of the
+unsharded model over the global batch.  Each rank takes its dp block of
+the batch; the loss's normalisers (the number of real boxes, the class
+weights, the proposal counts) are summed over dp, as the DETR reference
+sums its ``num_boxes``; the auction matcher runs per image, locally.  The
+sp x tp ranks of a dp block each hold that block's loss, so each
+backpropagates its share of it, and every gradient is then summed over the
+ranks that hold its parameter.  ``shard_params`` cuts the attention
+projections over tp (``_tp_spec_for``); ``replicate_params`` gives every
+rank the same parameters.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
 
 from ..utils.profile import annotate
 from .boxes import generalized_box_iou
 from .matcher import auction_assignment, matching_cost
+from .sharding import axis, sum_over
 
-__all__ = ["detection_loss", "make_train_step"]
+__all__ = ["detection_loss", "make_train_step", "replicate_params",
+           "shard_params"]
 
 
 def detection_loss(outputs, targets, matcher: str = "fixed",
@@ -29,7 +41,7 @@ def detection_loss(outputs, targets, matcher: str = "fixed",
                    giou_weight: float = 2.0, class_loss: str = "ce",
                    eos_coef: float = 0.1, l1_weight: float = 5.0,
                    matcher_rounds: int = 2000,
-                   return_metrics: bool = False):
+                   return_metrics: bool = False, group=None):
     """Detection loss (classification + 5 * L1 box + 2 * GIoU, the
     published Deformable DETR weights, arXiv:2010.04159 §4.1; GIoU per
     arXiv:1902.09630).  ``giou_weight=0`` disables the GIoU term
@@ -63,23 +75,38 @@ def detection_loss(outputs, targets, matcher: str = "fixed",
     ``metrics["matcher_converged"]`` is a bool tensor on the loss's device:
     False means some auction matching hit its ``matcher_rounds`` budget and
     fell back to per-target argmin.  It is not read back to the host here.
+
+    ``group``: the process group over which the batch is split (dp).  The
+    loss is then this rank's share of the whole batch's loss: its
+    normalisers are summed over the group, so that the shares sum to the
+    loss of the whole batch.
     """
     loss, converged = _single_detection_loss(
         outputs, targets, matcher, giou_weight, class_loss, eos_coef,
-        l1_weight=l1_weight, matcher_rounds=matcher_rounds)
+        l1_weight=l1_weight, matcher_rounds=matcher_rounds, group=group)
     for aux_out in outputs.get("aux", ()):
         aux_loss, aux_conv = _single_detection_loss(
             aux_out, targets, matcher, giou_weight, class_loss, eos_coef,
-            l1_weight=l1_weight, matcher_rounds=matcher_rounds)
+            l1_weight=l1_weight, matcher_rounds=matcher_rounds, group=group)
         loss = loss + aux_weight * aux_loss
         converged = converged & aux_conv
     if "enc" in outputs:
         loss = loss + enc_weight * _enc_proposal_loss(
             outputs["enc"], targets, giou_weight=giou_weight,
-            l1_weight=l1_weight)
+            l1_weight=l1_weight, group=group)
     if return_metrics:
         return loss, {"matcher_converged": converged}
     return loss
+
+
+def _total(x: torch.Tensor, group) -> torch.Tensor:
+    """A normaliser summed over the ranks of ``group`` (none: ``x``).  It
+    carries no gradient: it counts targets and class weights."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def _sigmoid_bce(logits, labels):
@@ -97,7 +124,8 @@ def _sigmoid_focal(logits, labels, alpha, gamma):
     return (alpha * labels + (1.0 - alpha) * (1.0 - labels)) * loss
 
 
-def _enc_proposal_loss(enc, targets, giou_weight=2.0, l1_weight=5.0):
+def _enc_proposal_loss(enc, targets, giou_weight=2.0, l1_weight=5.0,
+                       group=None):
     """Two-stage encoder proposal loss (the JAX package's static-shape form
     of arXiv:2010.04159 §A.4).
 
@@ -118,13 +146,13 @@ def _enc_proposal_loss(enc, targets, giou_weight=2.0, l1_weight=5.0):
 
     pos = torch.zeros_like(obj).scatter_add(1, idx, mask).clamp(0.0, 1.0)
     bce = _sigmoid_bce(obj, pos)
-    n_pos = pos.sum().clamp(min=1.0)
-    n_neg = (1.0 - pos).sum().clamp(min=1.0)
+    n_pos = _total(pos.sum(), group).clamp(min=1.0)
+    n_neg = _total((1.0 - pos).sum(), group).clamp(min=1.0)
     obj_loss = (bce * pos).sum() / n_pos + (bce * (1.0 - pos)).sum() / n_neg
 
     sel = torch.gather(pboxes, 1, idx[..., None].expand(-1, -1, 4))
     l1 = (sel - tboxes).abs().sum(-1)
-    n_real = mask.sum().clamp(min=1.0)
+    n_real = _total(mask.sum(), group).clamp(min=1.0)
     loss = obj_loss + l1_weight * (l1 * mask).sum() / n_real
     if giou_weight:
         giou = generalized_box_iou(sel, tboxes)
@@ -135,7 +163,7 @@ def _enc_proposal_loss(enc, targets, giou_weight=2.0, l1_weight=5.0):
 def _single_detection_loss(outputs, targets, matcher, giou_weight=2.0,
                            class_loss="ce", eos_coef=0.1,
                            focal_alpha=0.25, focal_gamma=2.0,
-                           l1_weight=5.0, matcher_rounds=2000):
+                           l1_weight=5.0, matcher_rounds=2000, group=None):
     """Loss for one prediction head.  Returns ``(loss, converged)``, where
     ``converged`` is a bool tensor: True unless the auction matcher failed
     to assign every active target within ``matcher_rounds`` for some batch
@@ -185,13 +213,13 @@ def _single_detection_loss(outputs, targets, matcher, giou_weight=2.0,
     full_labels = torch.full((B, N + 1), no_object, dtype=torch.int64,
                              device=device).scatter(1, safe_q, labels)[:, :N]
 
-    n_real = mask.sum().clamp(min=1.0)
+    n_real = _total(mask.sum(), group).clamp(min=1.0)
     if class_loss == "ce":
         ce = F.cross_entropy(logits.reshape(B * N, K),
                              full_labels.reshape(B * N),
                              reduction="none").reshape(B, N)
         w = torch.where(full_labels == no_object, eos_coef, 1.0).to(ce.dtype)
-        cls = (ce * w).sum() / w.sum()
+        cls = (ce * w).sum() / _total(w.sum(), group)
     elif class_loss == "focal":
         # K + 1 classes, the last one dropped: no-object -> all-zero row
         onehot = F.one_hot(full_labels, K + 1)[..., :K].to(logits.dtype)
@@ -213,12 +241,118 @@ def _single_detection_loss(outputs, targets, matcher, giou_weight=2.0,
     return loss, converged
 
 
+def replicate_params(model: nn.Module, mesh) -> nn.Module:
+    """Give every rank of the mesh the same parameters: those of its first
+    rank (coordinate 0 on every axis), broadcast along each axis in turn.
+    Returns ``model``."""
+    params = list(model.parameters())
+    with torch.no_grad():
+        for name in mesh.mesh_dim_names:
+            size, _, group = axis(mesh, name)
+            if size == 1 or not params:
+                continue
+            flat = torch.cat([p.reshape(-1) for p in params])
+            dist.broadcast(flat, group=group, group_src=0)
+            _unflatten(flat, params)
+    return model
+
+
+def _unflatten(flat: torch.Tensor, tensors) -> None:
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i:i + t.numel()].view_as(t))
+        i += t.numel()
+
+
+def _tp_spec_for(name: str, param: torch.Tensor) -> int | None:
+    """The dimension of a parameter that tensor parallelism splits over the
+    ``tp`` axis, by its ``state_dict`` name, or None (replicated).
+
+    The attention projections have head-major layouts
+    (``models/attention.py``), so a contiguous block is a block of heads:
+
+      img_input_proj / query_input_proj   weight [out, in], bias [out]:
+          split *out* (column-parallel: each tp rank computes its heads'
+          features)
+      query_output_proj                   weight [out, in(head-major)]:
+          split *in* (row-parallel: the partial sums are summed over tp;
+          the bias stays replicated and is added once, after the sum)
+
+    Everything else (FFNs, heads, embeddings, norms) stays replicated.
+    """
+    last = name.rsplit(".", 1)[-1]
+    if "img_input_proj" in name or "query_input_proj" in name:
+        if last in ("weight", "bias"):
+            return 0
+    if "query_output_proj" in name and last == "weight" and param.ndim == 2:
+        return 1
+    return None
+
+
+def _whole_shape(module: nn.Linear, last: str) -> tuple:
+    return ((module.out_features, module.in_features) if last == "weight"
+            else (module.out_features,))
+
+
+def shard_params(model: nn.Module, mesh) -> nn.Module:
+    """Replicate the parameters over the mesh (:func:`replicate_params`),
+    then cut the attention projections over the ``tp`` axis
+    (:func:`_tp_spec_for`): each rank keeps its block.  A projection stays
+    whole where tp does not divide it.  Returns ``model``; build the
+    optimizer on its parameters after this."""
+    replicate_params(model, mesh)
+    tp, t, _ = axis(mesh, "tp")
+    if tp == 1:
+        return model
+    with torch.no_grad():
+        for mname, module in model.named_modules():
+            if not isinstance(module, nn.Linear):
+                continue
+            for last, p in module.named_parameters(recurse=False):
+                dim = _tp_spec_for(f"{mname}.{last}", p)
+                if (dim is not None and p.shape[dim] % tp == 0
+                        and tuple(p.shape) == _whole_shape(module, last)):
+                    p.data = p.data.chunk(tp, dim)[t].contiguous()
+    return model
+
+
+def _tp_blocks(model: nn.Module) -> set:
+    """Ids of the parameters that hold a tp block (shard_params cut them):
+    those smaller than their layer's whole shape."""
+    return {id(p) for module in model.modules()
+            if isinstance(module, nn.Linear)
+            for last, p in module.named_parameters(recurse=False)
+            if tuple(p.shape) != _whole_shape(module, last)}
+
+
+def _sum_gradients(model: nn.Module, mesh) -> None:
+    """Sum each parameter's gradient over the ranks that hold the
+    parameter: every rank of the mesh, or, for a tp block, the dp and sp
+    ranks of its tp coordinate.  One all-reduce a mesh axis for each of the
+    two kinds."""
+    blocks = _tp_blocks(model)
+    buckets = {}
+    for p in model.parameters():
+        if p.grad is not None:
+            axes = ("dp", "sp") if id(p) in blocks else ("dp", "sp", "tp")
+            buckets.setdefault(axes, []).append(p.grad)
+    for axes, grads in buckets.items():
+        groups = [group for size, _, group in (axis(mesh, a) for a in axes)
+                  if size > 1]
+        if not groups:
+            continue
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        for group in groups:
+            dist.all_reduce(flat, group=group)
+        _unflatten(flat, grads)
+
+
 def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
                     aux_weight: float = 1.0, enc_weight: float = 1.0,
                     giou_weight: float = 2.0, class_loss: str = "ce",
                     eos_coef: float = 0.1, l1_weight: float = 5.0,
                     matcher_rounds: int = 2000,
-                    return_metrics: bool = False):
+                    return_metrics: bool = False, mesh=None):
     """Build a train step ``step(pyramid, targets) -> loss`` for ``model``
     (an ``nn.Module`` returning the outputs :func:`detection_loss` takes)
     and a ``torch.optim`` ``optimizer`` over its parameters.
@@ -235,12 +369,24 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     ``metrics["matcher_converged"]``, a device tensor: nothing syncs with
     the host per step unless the caller reads it.  The returned loss is
     detached.
+
+    With a device ``mesh`` (``parallel.make_mesh``; the model built with
+    the same one, its parameters placed by :func:`shard_params` or
+    :func:`replicate_params`), each rank calls the step with its dp block
+    of the batch, and the step equals one step of the unsharded model over
+    the whole batch (the module docstring): every rank returns the whole
+    batch's loss, and ``matcher_converged`` holds for the whole batch.
     """
     loss_kw = dict(matcher=matcher, aux_weight=aux_weight,
                    enc_weight=enc_weight, giou_weight=giou_weight,
                    class_loss=class_loss, eos_coef=eos_coef,
                    l1_weight=l1_weight, matcher_rounds=matcher_rounds,
                    return_metrics=True)
+    copies = 1
+    if mesh is not None:
+        dp, _, dp_group = axis(mesh, "dp")
+        copies = axis(mesh, "sp")[0] * axis(mesh, "tp")[0]
+        loss_kw["group"] = dp_group if dp > 1 else None
 
     def step(pyramid, targets):
         optimizer.zero_grad(set_to_none=True)
@@ -248,11 +394,22 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
         with annotate("loss"):
             loss, metrics = detection_loss(outputs, targets, **loss_kw)
         with annotate("backward"):
-            loss.backward()
+            # the sp x tp ranks of a dp block hold the same loss: their
+            # shares of it sum to it
+            (loss / copies if copies > 1 else loss).backward()
+            if mesh is not None:
+                _sum_gradients(model, mesh)
         with annotate("optimizer"):
             optimizer.step()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = sum_over(loss, mesh, "dp")
+            if return_metrics:
+                ok = metrics["matcher_converged"].to(torch.int32)
+                metrics["matcher_converged"] = (
+                    sum_over(ok, mesh, "dp") == axis(mesh, "dp")[0])
         if return_metrics:
-            return loss.detach(), metrics
-        return loss.detach()
+            return loss, metrics
+        return loss
 
     return step
