@@ -98,10 +98,16 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       ``MSDA_WARPS_PER_BLOCK``; the streamed kernels' ``STREAM_SLICE``,
       ``FWD_``/``BWD_CHUNKS_PER_BLOCK``), a short run: each variant builds,
       agrees with its plain version and is timed.
+10. The headline lines: ``python -m msda_tpu_torch.headline`` in a
+    subprocess must exit 0 with root ``bench.py``'s three lines (f32 and
+    bf16 fwd+bwd, f32 fwd at N=10,000), each finite; they are printed
+    beside the card's name and power limit, with K1's and K2's launches
+    in that process.
 
 Any failure raises, and the script exits non-zero.  The line before the
 last is a JSON summary of the kernels (launches on the main paths, the
-exported model's, the mesh path's and the HF models' included, and per
+exported model's, the mesh path's, the HF models' and the headline's
+included, and per
 training step, error, time, plain time
 and bound at the encoder shape for K1/K2 and at the 256-base pyramid for
 the streamed kernels); the last line is ``{"ok": true, "device": {...}}``.
@@ -120,7 +126,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from msda_tpu_torch import autotune, benchmark, capture_trace, detection_parity, memory_report  # noqa: E402
+from msda_tpu_torch import autotune, benchmark, capture_trace, detection_parity, headline, memory_report  # noqa: E402
 from msda_tpu_torch.models import DeformableDetr, attention, init_parameters, postprocess  # noqa: E402
 from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, library, stream  # noqa: E402
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
@@ -1131,6 +1137,10 @@ REQUEST_SEEDS = (20, 21, 22)  # phase 4's requests
 # exported against live detections: labels equal, scores and boxes within
 # tol * max(1, |live|) (both run the same operators in the same order)
 EXPORT_TOL = {"f32": 1e-5, "bf16": 1e-2}
+# the exported bf16 model's mean request in the serving process, at most
+# this many times phase 4's live bf16 mean (the card's host noise alone
+# moved serving by up to 1.4x between calls)
+EXPORT_SLOWDOWN_MAX = 2.0
 SPANS = ("encoder", "decoder", "postprocess", "loss", "backward",
          "optimizer")
 
@@ -1281,6 +1291,12 @@ def export_path(smi: str, live_ms: dict) -> dict:
         if not ok:
             raise AssertionError(f"exported {name}: detections differ from "
                                  "the live model's")
+        ratio = sum(ms) / len(ms) / live_ms[name]
+        log(f"exported {name}: serving process / live mean {ratio:.2f}x"
+            + (f" (bar {EXPORT_SLOWDOWN_MAX:g}x)" if name == "bf16" else ""))
+        if name == "bf16" and ratio > EXPORT_SLOWDOWN_MAX:
+            raise AssertionError(f"exported bf16 serves {ratio:.2f}x slower "
+                                 "than the live model")
     counts = {k: served["launches"].get(k, 0) for k in launches()}
     check_path_launches("export", counts, {
         cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD})
@@ -1545,6 +1561,42 @@ def autotune_short(smi: str) -> None:
     log(f"autotune: every variant built, checked and timed on {smi}")
 
 
+# Phase 10: the headline lines (python -m msda_tpu_torch.headline), each
+# timed over 3 runs of 150 calls after 2 warm-up calls
+HEADLINE_CALLS = 2 + 3 * 150
+
+
+def headline_lines(smi: str) -> dict:
+    """Phase 10: ``python -m msda_tpu_torch.headline`` in a subprocess, as a
+    user runs it: exit 0 with exactly root ``bench.py``'s three lines, each
+    finite.  Returns K1's and K2's launches in that process (from its
+    standard error), held to the calls the three lines make."""
+    run = subprocess.run([sys.executable, "-m", "msda_tpu_torch.headline"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    lines = [json.loads(line) for line in run.stdout.splitlines()
+             if line.startswith("{")]
+    want = [f"{name} (cuda)" for name, *_ in headline.CONFIGS]
+    if run.returncode != 0 or [line.get("metric") for line in lines] != want \
+            or not all(isinstance(line.get("value"), (int, float))
+                       and np.isfinite(line["value"]) and line["value"] > 0
+                       for line in lines):
+        raise AssertionError(f"headline: exit {run.returncode}, lines "
+                             f"{lines}\n{run.stderr[-3000:]}")
+    for line in lines:
+        log(f"headline {json.dumps(line)} on {smi}")
+    counts = {k: 0 for k in launches()}
+    for text in run.stderr.splitlines():
+        if text.startswith("launches "):
+            counts.update(json.loads(text[len("launches "):]))
+    fwdbwd = sum(mode == "fwdbwd" for _, _, mode, _ in headline.CONFIGS)
+    check_path_launches("headline", counts, {
+        cuda_fwd.KERNEL: HEADLINE_CALLS * len(headline.CONFIGS),
+        cuda_bwd.KERNEL: HEADLINE_CALLS * fwdbwd})
+    log(f"headline: launches {counts} in its process on {smi}")
+    return counts
+
+
 def main() -> None:
     smi = setup()
     errs = {cuda_fwd.KERNEL: check_kernel(),
@@ -1570,6 +1622,7 @@ def main() -> None:
     by_path["mesh"] = mesh_path(smi)
     by_path.update(hf_parity(smi))
     autotune_short(smi)
+    by_path["headline"] = headline_lines(smi)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         if name in times:  # K1, K2: the encoder shape, f32

@@ -2,7 +2,7 @@
 
     python -m msda_tpu_torch.benchmark [--pyramid ref|big] [--force-stream]
         [--queries N ...] [--impls cuda reference] [--bf16] [--no-memory]
-        [--out PATH] [--device cuda|cpu]
+        [--out PATH] [--resume] [--device cuda|cpu]
 
 Sweeps the number of queries at the reference workload (B=4, H=8, C=32,
 P=4, ``padding_mode="border"``, ``align_corners=True``;
@@ -20,9 +20,13 @@ adds ``cuda`` in bf16) and each N it measures:
                metric, not the XLA temp + output bytes of the JAX script).
 
 Times are medians over three runs of CUDA events (``utils.timeit_op``).
-The CSV has the JAX script's columns; it goes to
-``build/benchmark_<pyramid>[_stream]_<device>.csv`` unless ``--out`` says
-otherwise.  The default device is the CUDA card, and a run without one
+The CSV has the JAX script's columns, then ``device`` (the card's name) and
+``power_limit`` (its ``nvidia-smi`` power limit; empty on the CPU); it goes
+to ``build/benchmark_<pyramid>[_stream]_<device>.csv`` unless ``--out``
+says otherwise.  Each row is flushed to ``<out>.partial`` as soon as it is
+measured, and the file is renamed to ``<out>`` at the end, so a sweep that
+is cut keeps its rows; ``--resume`` skips the (impl, dtype, N) rows already
+in ``<out>`` or its ``.partial`` and keeps them in the output.  The default device is the CUDA card, and a run without one
 fails: ``--device cpu`` (``reference`` only, with ``--no-memory``) must be
 asked for, and its times are the host's.
 """
@@ -31,7 +35,9 @@ from __future__ import annotations
 
 import argparse
 import csv
+import math
 import os
+import subprocess
 import sys
 
 import torch
@@ -44,8 +50,10 @@ PYRAMIDS = {
     "big": ((256, 256), (128, 128), (64, 64), (32, 32)),
 }
 PADDING, ALIGN = "border", True
+# the JAX script's columns first, then the device that measured the row
 FIELDS = ["impl", "dtype", "num_queries", "fwd_ms", "fwdbwd_ms",
-          "peak_mem_mb"]
+          "peak_mem_mb", "device", "power_limit"]
+_NUMBERS = ("fwd_ms", "fwdbwd_ms", "peak_mem_mb")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -98,6 +106,44 @@ def bench(impl, dtype, n, pyramid, device, memory=True):
                 fwdbwd_ms=round(t_fb, 4), peak_mem_mb=round(mem, 1))
 
 
+def power_limit(device) -> str:
+    """The card's power limit as ``nvidia-smi`` prints it ("700.00 W"), or
+    "" when ``nvidia-smi`` cannot say."""
+    index = torch.device(device).index
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit",
+             "--format=csv,noheader",
+             f"--id={torch.cuda.current_device() if index is None else index}"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    return out.stdout.strip() if out.returncode == 0 else ""
+
+
+def measured_rows(out: str) -> dict:
+    """The rows an earlier run of this sweep left in ``out`` or in
+    ``out + ".partial"``, by ``(impl, dtype, num_queries)``; the numbers
+    parsed.  A row that a cut run left incomplete is skipped."""
+    done = {}
+    for path in (out, out + ".partial"):
+        if not os.path.exists(path):
+            continue
+        with open(path, newline="") as f:
+            for raw in csv.DictReader(f):
+                try:
+                    row = dict(raw, num_queries=int(raw["num_queries"]),
+                               **{k: float(raw[k]) for k in _NUMBERS})
+                except (KeyError, TypeError, ValueError):
+                    continue
+                if not (math.isfinite(row["fwd_ms"])
+                        and math.isfinite(row["fwdbwd_ms"])):
+                    continue
+                done.setdefault(
+                    (row["impl"], row["dtype"], row["num_queries"]), row)
+    return done
+
+
 def _parser():
     ap = argparse.ArgumentParser(
         prog="python -m msda_tpu_torch.benchmark", description=__doc__,
@@ -115,6 +161,9 @@ def _parser():
     ap.add_argument("--no-memory", action="store_true",
                     help="skip the peak-memory column (NaN)")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--resume", action="store_true",
+                    help="skip the (impl, dtype, N) rows already in --out "
+                         "or its .partial, and keep them in the output")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
@@ -131,6 +180,7 @@ def main(argv=None) -> list[dict]:
             raise SystemExit("no CUDA device is visible; pass --device cpu "
                              "to time impl='reference' on the host")
         name = torch.cuda.get_device_name(device)
+        card = {"device": name, "power_limit": power_limit(device)}
     else:
         if any(impl == "cuda" for impl, _ in configs):
             raise SystemExit("impl 'cuda' needs a CUDA device; use "
@@ -139,6 +189,7 @@ def main(argv=None) -> list[dict]:
             raise SystemExit("peak memory is measured on a CUDA device "
                              "only; pass --no-memory with --device cpu")
         name = "cpu (host clock)"
+        card = {"device": "cpu", "power_limit": ""}
     if args.out is None:
         suffix = "_stream" if args.force_stream else ""
         args.out = os.path.join(
@@ -148,23 +199,38 @@ def main(argv=None) -> list[dict]:
           f"{PYRAMIDS[args.pyramid]}; force_stream {args.force_stream}",
           flush=True)
 
+    done = measured_rows(args.out) if args.resume else {}
+    if done:
+        print(f"resume: {len(done)} rows already measured", flush=True)
+    if os.path.dirname(args.out):
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    partial = args.out + ".partial"
     rows = []
-    with stream.forced(args.force_stream or stream.FORCE):
+    # each row is flushed as it is measured, so that a cut sweep leaves a
+    # CSV of its rows; the complete file replaces ``out`` at the end
+    with open(partial, "w", newline="") as f, stream.forced(
+            args.force_stream or stream.FORCE):
+        writer = csv.DictWriter(f, fieldnames=FIELDS, restval="",
+                                extrasaction="ignore")
+        writer.writeheader()
+        f.flush()
         for impl, dtype in configs:
             for n in args.queries:
-                row = bench(impl, dtype, n, args.pyramid, device,
-                            memory=not args.no_memory)
+                key = (impl, str(dtype).removeprefix("torch."), n)
+                if key in done:
+                    row, tag = done[key], "resumed"
+                else:
+                    row = dict(bench(impl, dtype, n, args.pyramid, device,
+                                     memory=not args.no_memory), **card)
+                    tag = "measured"
+                writer.writerow(row)
+                f.flush()
                 rows.append(row)
                 print(f"{row['impl']:10s} {row['dtype']:8s} N={n:6d}: fwd "
                       f"{row['fwd_ms']:10.4f} ms, fwd+bwd "
                       f"{row['fwdbwd_ms']:10.4f} ms, mem "
-                      f"{row['peak_mem_mb']:8.1f} MB", flush=True)
-    if os.path.dirname(args.out):
-        os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=FIELDS)
-        writer.writeheader()
-        writer.writerows(rows)
+                      f"{row['peak_mem_mb']:8.1f} MB ({tag})", flush=True)
+    os.replace(partial, args.out)
     print(f"wrote {args.out}", flush=True)
     return rows
 

@@ -8,7 +8,7 @@ that this package imports on machines without a GPU or ``nvcc``.  ``stream`` hol
 router and plain streamed versions.
 """
 
-from .msda import multiscale_deformable_attention
+from .msda import multiscale_deformable_attention, resolved_impl
 from .reference import (
     compute_level_data,
     level_shapes,
@@ -18,6 +18,7 @@ from .reference import (
 
 __all__ = [
     "multiscale_deformable_attention",
+    "resolved_impl",
     "native_multiscale_deformable_attention",
     "native_msda_backward",
     "compute_level_data",

@@ -35,7 +35,7 @@ import torch
 from .library import flat_shapes, msda_fwd
 from .reference import level_shapes, native_multiscale_deformable_attention
 
-__all__ = ["multiscale_deformable_attention"]
+__all__ = ["multiscale_deformable_attention", "resolved_impl"]
 
 _VALID_PADDING = ("border", "zeros")
 _VALID_IMPL = ("auto", "cuda", "reference", "fused")
@@ -82,26 +82,48 @@ def _check_inputs(img, shapes, sampling_points, attention_weights):
         )
 
 
-def _resolve_impl(impl: str, img: torch.Tensor) -> str:
+def resolved_impl(impl: str, img_shapes, dtype,
+                  device: torch.device | str = "cuda") -> str:
+    """Which implementation ``multiscale_deformable_attention`` runs for
+    ``img`` of ``dtype`` on ``device``: ``"cuda"`` or ``"reference"``.
+
+    The counterpart of ``msda_tpu.ops.msda.resolved_impl``, so that a
+    caller can ask before it places the op.  ``img_shapes`` is validated as
+    the op validates it (``level_shapes``).  ``"auto"`` gives ``"cuda"`` for
+    a CUDA device in bf16, f16 or f32 and ``"reference"`` otherwise;
+    ``"fused"`` gives ``"reference"``; ``"cuda"`` in f64 or on another
+    device than CUDA raises the op's ``ValueError``, as does an unknown
+    ``impl``.  The JAX package's names map as: its ``"pallas"`` (the TPU
+    kernels) is this package's ``"cuda"``, its ``"reference"`` is
+    ``"reference"``, and its ``"fused"`` (an XLA patch-gather form, not
+    ported) is here an alias of ``"reference"``.  The op resolves through
+    this function.
+    """
+    level_shapes(img_shapes)
     if impl not in _VALID_IMPL:
         raise ValueError(f"impl must be one of {_VALID_IMPL}, got {impl!r}")
+    device = torch.device(device)
     if impl == "fused":
         return "reference"
     if impl == "auto":
-        if img.is_cuda and img.dtype in _KERNEL_DTYPES:
+        if device.type == "cuda" and dtype in _KERNEL_DTYPES:
             return "cuda"
         return "reference"
-    if impl == "cuda" and img.dtype not in _KERNEL_DTYPES:
+    if impl == "cuda" and dtype not in _KERNEL_DTYPES:
         raise ValueError(
             "impl='cuda' supports bf16/f16/f32 only; use "
             "impl='reference' for float64."
         )
-    if impl == "cuda" and not img.is_cuda:
+    if impl == "cuda" and device.type != "cuda":
         raise ValueError(
             "impl='cuda' needs CUDA tensors, got img on "
-            f"{img.device}; use impl='auto' or 'reference' on the CPU."
+            f"{device}; use impl='auto' or 'reference' on the CPU."
         )
     return impl
+
+
+def _resolve_impl(impl: str, img: torch.Tensor, shapes) -> str:
+    return resolved_impl(impl, shapes, img.dtype, img.device)
 
 
 def multiscale_deformable_attention(
@@ -156,7 +178,7 @@ def multiscale_deformable_attention(
             "pyramid and the level shapes disagree."
         )
     _check_inputs(img, shapes, sampling_points, attention_weights)
-    impl = _resolve_impl(impl, img)
+    impl = _resolve_impl(impl, img, shapes)
     if impl == "cuda":
         return msda_fwd(
             img.contiguous(), sampling_points.contiguous(),

@@ -13,6 +13,7 @@ disk and served by a fresh Python process that imports only
 equal and its scores and boxes within 1e-5.
 """
 
+import io
 import json
 import os
 import subprocess
@@ -34,6 +35,7 @@ from msda_tpu_torch.models import DeformableDetr, postprocess, state_dict_from_f
 from msda_tpu_torch.ops import library  # noqa: E402
 from msda_tpu_torch.utils import (export_fn, load_exported,  # noqa: E402
                                   load_exported_file, save_exported)
+from msda_tpu_torch.utils.export import _FRAME_CHUNK_SLOTS, _own_frame_chunk  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((8, 8), (4, 4))
@@ -146,3 +148,40 @@ def test_export_detector_with_postprocess(cpu_device, tmp_path):
         for k in ("scores", "boxes"):
             np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=1e-5,
                                        err_msg=k)
+
+
+# load_exported gives the generated forward a frame-stack chunk of its own:
+# dead locals pad its frame past CPython's 16 KiB chunk (a frame that fits
+# in the caller's chunk with too little room left made each operator call
+# allocate and free a chunk; PERF.md §6)
+def test_loaded_forward_fills_a_frame_chunk(cpu_device):
+    img, pts, wts = _op_inputs()
+    flat = library.flat_shapes(SHAPES)
+    args = tuple(torch.from_numpy(a) for a in (img, pts, wts))
+    blob = export_fn(lambda i, p, w: library.msda_fwd(i, p, w, flat,
+                                                      "border", False) * 2,
+                     *args)
+    plain = torch.export.load(io.BytesIO(blob)).module()
+    served = load_exported(blob)
+    before = type(plain).forward.__code__
+    after = type(served).forward.__code__
+    assert before.co_nlocals + before.co_stacksize < _FRAME_CHUNK_SLOTS
+    assert after.co_nlocals + after.co_stacksize >= _FRAME_CHUNK_SLOTS
+    assert "if False: _frame_pad_0 = " in served.code
+    # the same graph: the same operators on the same nodes, bit for bit
+    assert str(served.graph) == str(plain.graph)
+    assert torch.equal(served(*args), plain(*args))
+
+
+def test_own_frame_chunk_leaves_large_frames_and_other_modules():
+    class Chain(torch.nn.Module):
+        def forward(self, x):
+            for _ in range(_FRAME_CHUNK_SLOTS + 10):
+                x = x + 1
+            return x
+
+    traced = torch.fx.symbolic_trace(Chain())
+    code = traced.code
+    assert _own_frame_chunk(traced) is traced and traced.code == code
+    linear = torch.nn.Linear(2, 2)
+    assert _own_frame_chunk(linear) is linear

@@ -385,3 +385,87 @@ def test_fused_alias_matches_jax_fused(padding_mode, align_corners):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
                                    atol=1e-4, rtol=1e-4,
                                    err_msg=f"{name} gradient")
+
+
+# resolved_impl: the port's against msda_tpu.ops.msda.resolved_impl on the
+# CPU for the cases the two share (the JAX names mapped: "pallas" is the
+# port's "cuda", "fused" its alias of "reference"), then the port's CUDA
+# cases as pure logic (a CUDA device needs no card to be named)
+_JAX_NAMES = {"pallas": "cuda", "fused": "reference", "reference": "reference"}
+_RESOLVE_SHAPES = ((8, 8), (4, 4))
+
+
+@pytest.mark.parametrize("impl,dtype", [
+    ("auto", "float32"), ("auto", "float64"), ("reference", "float32"),
+    ("reference", "float64"), ("fused", "float32"), ("auto", "bfloat16"),
+])
+def test_resolved_impl_matches_jax_on_cpu(impl, dtype):
+    from msda_tpu.ops.msda import resolved_impl as jax_resolved_impl
+    from msda_tpu_torch.ops import resolved_impl
+
+    want = jax_resolved_impl(impl, np.asarray(_RESOLVE_SHAPES),
+                             jax.numpy.dtype(dtype))
+    got = resolved_impl(impl, _RESOLVE_SHAPES, getattr(torch, dtype), "cpu")
+    assert got == _JAX_NAMES[want] == "reference"
+
+
+@pytest.mark.parametrize("case", ["f64_kernel", "unknown_impl", "bad_shapes"])
+def test_resolved_impl_raises_where_jax_raises(case):
+    from msda_tpu.ops.msda import resolved_impl as jax_resolved_impl
+    from msda_tpu_torch.ops import resolved_impl
+
+    jax_args, args = {
+        "f64_kernel": (("pallas", _RESOLVE_SHAPES, jax.numpy.float64),
+                       ("cuda", _RESOLVE_SHAPES, torch.float64, "cuda")),
+        "unknown_impl": (("triton", _RESOLVE_SHAPES, jax.numpy.float32),
+                         ("triton", _RESOLVE_SHAPES, torch.float32, "cpu")),
+        "bad_shapes": (("auto", [[8, 8, 1]], jax.numpy.float32),
+                       ("auto", [[8, 8, 1]], torch.float32, "cpu")),
+    }[case]
+    with pytest.raises(ValueError):
+        jax_resolved_impl(*jax_args)
+    with pytest.raises(ValueError):
+        resolved_impl(*args)
+
+
+@pytest.mark.parametrize("impl,dtype,device,want", [
+    ("auto", torch.float32, "cuda", "cuda"),
+    ("auto", torch.bfloat16, "cuda:0", "cuda"),
+    ("auto", torch.float16, torch.device("cuda"), "cuda"),
+    ("auto", torch.float64, "cuda", "reference"),
+    ("auto", torch.bfloat16, "cpu", "reference"),
+    ("cuda", torch.float32, "cuda", "cuda"),
+    ("cuda", torch.bfloat16, "cuda", "cuda"),
+    ("fused", torch.float32, "cuda", "reference"),
+    ("reference", torch.float32, "cuda", "reference"),
+    ("cuda", torch.float32, "cpu", ValueError),
+    ("cuda", torch.float64, "cuda", ValueError),
+])
+def test_resolved_impl_cuda_cases(impl, dtype, device, want):
+    from msda_tpu_torch.ops import resolved_impl
+
+    if want is ValueError:
+        with pytest.raises(ValueError, match="impl='cuda'"):
+            resolved_impl(impl, _RESOLVE_SHAPES, dtype, device)
+    else:
+        assert resolved_impl(impl, _RESOLVE_SHAPES, dtype, device) == want
+
+
+def test_the_op_resolves_through_resolved_impl(monkeypatch):
+    from msda_tpu_torch.ops import msda as op_module
+
+    seen = []
+    real = op_module.resolved_impl
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(op_module, "resolved_impl", spy)
+    img, shapes, pts, wts, _ = _data(np.float32)
+    ti, tp, tw = _torch(img, pts, wts)
+    multiscale_deformable_attention(ti, shapes, tp, tw, impl="fused")
+    assert seen == [("fused", level_shapes(shapes), torch.float32,
+                     torch.device("cpu"))]
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
+        multiscale_deformable_attention(ti, shapes, tp, tw, impl="cuda")

@@ -366,8 +366,11 @@ def test_benchmark_writes_the_jax_columns(tmp_path):
     assert proc.returncode == 0, proc.stderr
     with open(out, newline="") as f:
         rows = list(csv.DictReader(f))
+    # the JAX script's columns first, then the device that measured them
     assert list(rows[0]) == ["impl", "dtype", "num_queries", "fwd_ms",
-                             "fwdbwd_ms", "peak_mem_mb"]
+                             "fwdbwd_ms", "peak_mem_mb", "device",
+                             "power_limit"]
+    assert (rows[0]["device"], rows[0]["power_limit"]) == ("cpu", "")
     assert [(r["impl"], r["dtype"], r["num_queries"]) for r in rows] == [
         ("reference", "float32", "10")]
     assert float(rows[0]["fwd_ms"]) > 0 and float(rows[0]["fwdbwd_ms"]) > 0
