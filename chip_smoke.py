@@ -133,8 +133,8 @@ from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: 
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
 from msda_tpu_torch.parallel import detection_loss, make_mesh, make_train_step, shard_params  # noqa: E402
-from msda_tpu_torch.utils import (annotate, export_fn, msda_bound,  # noqa: E402
-                                  reference_workload, roofline_ms,
+from msda_tpu_torch.utils import (annotate, card_identity, export_fn,  # noqa: E402
+                                  msda_bound, reference_workload, roofline_ms,
                                   save_exported, touched_rows, trace)
 
 # Deformable DETR (Zhu et al., arXiv:2010.04159 §4, App. A): an 800x1333
@@ -214,11 +214,11 @@ def log(msg: str) -> None:
 def setup() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    name, limit = card_identity()
+    if not limit:
+        raise RuntimeError("nvidia-smi did not give the card's name and "
+                           "power limit")
+    smi = f"{name}, {limit}"  # as nvidia-smi prints it
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1297,7 +1297,10 @@ def export_path(smi: str, live_ms: dict) -> dict:
         if name == "bf16" and ratio > EXPORT_SLOWDOWN_MAX:
             raise AssertionError(f"exported bf16 serves {ratio:.2f}x slower "
                                  "than the live model")
-    counts = {k: served["launches"].get(k, 0) for k in launches()}
+    counts = served["launches"]
+    if set(counts) != set(launches()):
+        raise AssertionError(f"export: launch counts {counts}, expected the "
+                             f"keys {sorted(launches())}")
     check_path_launches("export", counts, {
         cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD})
     return counts
@@ -1569,8 +1572,9 @@ HEADLINE_CALLS = 2 + 3 * 150
 def headline_lines(smi: str) -> dict:
     """Phase 10: ``python -m msda_tpu_torch.headline`` in a subprocess, as a
     user runs it: exit 0 with exactly root ``bench.py``'s three lines, each
-    finite.  Returns K1's and K2's launches in that process (from its
-    standard error), held to the calls the three lines make."""
+    finite.  Returns every kernel's launches in that process (its one
+    ``launches`` line on standard error), held to the calls the three lines
+    make."""
     run = subprocess.run([sys.executable, "-m", "msda_tpu_torch.headline"],
                          capture_output=True, text=True, timeout=600,
                          cwd=ROOT)
@@ -1585,10 +1589,13 @@ def headline_lines(smi: str) -> dict:
                              f"{lines}\n{run.stderr[-3000:]}")
     for line in lines:
         log(f"headline {json.dumps(line)} on {smi}")
-    counts = {k: 0 for k in launches()}
-    for text in run.stderr.splitlines():
-        if text.startswith("launches "):
-            counts.update(json.loads(text[len("launches "):]))
+    counts = [json.loads(text[len("launches "):])
+              for text in run.stderr.splitlines()
+              if text.startswith("launches ")]
+    if len(counts) != 1 or set(counts[0]) != set(launches()):
+        raise AssertionError(f"headline: launch counts {counts}, expected "
+                             f"one line with the keys {sorted(launches())}")
+    counts = counts[0]
     fwdbwd = sum(mode == "fwdbwd" for _, _, mode, _ in headline.CONFIGS)
     check_path_launches("headline", counts, {
         cuda_fwd.KERNEL: HEADLINE_CALLS * len(headline.CONFIGS),

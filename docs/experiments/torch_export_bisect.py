@@ -1,49 +1,32 @@
 #!/usr/bin/env python3
-"""Bisect the exported bf16 detector's fresh-process serving time on one
-NVIDIA GPU.
+"""The exported bf16 detector served from a fresh process, loaded with and
+without ``utils.export.load_exported``'s frame-stack chunk, on one NVIDIA
+GPU.
 
-    python3 docs/experiments/torch_export_bisect.py [--out PATH] [--pre LIST]
-        [--variants LIST [--instrument]] [--phase8b ORDERS]
+    python3 docs/experiments/torch_export_bisect.py [--turns N] [--out PATH]
 
 ``chip_smoke.py`` phase 8b served the exported bf16 full-width detector
 from a second process 7-40x slower than the live model, while the process
-that exported it served the same bytes at the live model's speed
-(``torch_export_serve.py``).  Each mode compares two processes, or two
-forms of one process, and changes one thing at a time:
+that exported it served the same bytes at the live model's speed.  The
+bisection between the two processes (``PERF.md`` §6, PR 8) traced it to
+CPython's frame-stack chunks (``cpython_frame_chunks.py`` shows the
+mechanism on a CPU), and ``load_exported`` now starts the generated
+``forward`` on a chunk of its own.  This script keeps the before and
+after of that repair, in one process tree:
 
-  * default: the exporting process (``chip_smoke.setup()``: kernels built,
-    TF32 off) exports the bf16 model to ``build/export_bisect/`` and
-    measures the live model and the bytes loaded back (below); then one
-    fresh process for each ``--pre`` step, done before it loads the
-    artifact: ``none``; ``tf32off`` (phase 1's two flags), ``matmul_ieee``
-    and ``cudnn_off`` (one each); ``models`` (imports
-    ``msda_tpu_torch.models``); ``live`` (runs a small live bf16 model);
-    ``export_tiny`` (exports a one-layer bf16 function); ``f32first``
-    (serves the f32 artifact 4 times; with ``--phase8b`` only);
-  * ``--variants``: instead of the ``--pre`` processes, phase 8b's serving
-    process itself, changed as each name of ``SERVE_VARIANTS`` says
-    (``+`` joins several; a ``func_`` prefix moves its loop from module
-    level into a function): ``as_is``, ``no_save``, ``no_file``,
-    ``one_pyramid``, ``pyramids_first``, ``torch_first``, ``cpu_warm``,
-    ``no_counts``, ``loop_host`` (the loop's host time), ``loop_ops``
-    (host ms by operator), ``loop_cpu`` (each thread's CPU time),
-    ``gc_time``, ``gc_off``, ``gc_freeze``, ``raw_load`` (the artifact
-    loaded without ``utils.export.load_exported``'s frame-stack chunk:
-    the serving process before that loader padded the frame);
-    ``--instrument`` measures one more
-    request (below) in each after its loop;
-  * ``--phase8b ORDERS``: ``chip_smoke.py``'s phases 4 and 8b, then 8b's
-    serving process again in each ``;``-separated order of models, then
-    the ``--pre`` processes on 8b's artifact.
+  * the exporting process (``chip_smoke.setup()``: kernels built, TF32
+    off) exports the bf16 model + postprocess to ``build/export_bisect/``
+    and times the live model on ``chip_smoke.REQUEST_SEEDS`` (CUDA events,
+    after one warm-up request);
+  * then, ``--turns`` times (default 2), phase 8b's serving process
+    (``chip_smoke._SERVE_EXPORTED``, which imports torch, numpy and
+    ``msda_tpu_torch.utils.export`` only) twice: ``raw``, the artifact
+    loaded as ``torch.export.load(...).module()`` gives it (the serving
+    process before the repair), and ``padded``, through ``load_exported``.
 
-"Measures" is: 5 requests after one warm-up (CUDA events, and the host's
-enqueue time of each call), one under ``utils.profile.trace`` (device
-busy and window, launches, the 6 kernels with the most device time), one
-under a dispatch mode that sums the host time of each ATen operator, and
-the loaded program's nodes by target and constants by dtype and device.
 Rows are printed with the card's ``nvidia-smi`` name and power limit and
 written to ``--out`` (default ``build/export_bisect.log``).  Needs a CUDA
-card and ``nvcc``.
+card and ``nvcc``; ~3 min.
 """
 
 from __future__ import annotations
@@ -61,473 +44,89 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from msda_tpu_torch.utils import export_fn, load_exported, save_exported  # noqa: E402
-from msda_tpu_torch.utils.export import _Function  # noqa: E402
+from msda_tpu_torch.utils import export_fn, save_exported  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "export_bisect")
-PRE = ("none", "tf32off", "matmul_ieee", "cudnn_off", "models", "live",
-       "export_tiny", "f32first")
-
-# Changes to chip_smoke.py's phase 8b serving process, as (old, new)
-# substitutions of its source
-SERVE_VARIANTS = {
-    "as_is": [],
-    "no_save": [("""            torch.save({k: v.cpu() for k, v in det.items()},
-                       f"{spec['dir']}/{name}_{i}.pt")
-""", "")],
-    "no_file": [("""            torch.save({k: v.cpu() for k, v in det.items()},
-                       f"{spec['dir']}/{name}_{i}.pt")
-""", """            {k: v.cpu() for k, v in det.items()}
-""")],
-    "one_pyramid": [("""    requests = [pyramid(seed) for seed in spec["seeds"]]""",
-                     """    requests = [pyramid(spec["seeds"][0])] * len(spec["seeds"])""")],
-    "pyramids_first": [("""    serve = load_exported_file(f"{spec['dir']}/{name}.pt2")
-    requests = [pyramid(seed) for seed in spec["seeds"]]""",
-                        """    requests = [pyramid(seed) for seed in spec["seeds"]]
-    serve = load_exported_file(f"{spec['dir']}/{name}.pt2")""")],
-    "torch_first": [("import numpy as np\nimport torch\n",
-                     "import torch\nimport numpy as np\n")],
-    "cpu_warm": [("""        serve(*requests[0])  # warm-up: builds the kernels
-""", """        {k: v.cpu() for k, v in serve(*requests[0]).items()}
-"""), ("""            torch.save({k: v.cpu() for k, v in det.items()},
-                       f"{spec['dir']}/{name}_{i}.pt")
-""", "")],
-    # the loop's requests with their host time: the call's, and the wait
-    # for the device after it
-    "loop_host": [("import json, sys\n", "import json, sys, time\n"),
-                  ("""            det = serve(*pyr)
-            end.record()
-            torch.cuda.synchronize()
-""", """            t0 = time.perf_counter()
-            det = serve(*pyr)
-            t1 = time.perf_counter()
-            end.record()
-            torch.cuda.synchronize()
-            host.append([round((t1 - t0) * 1e3, 3),
-                         round((time.perf_counter() - t1) * 1e3, 3)])
-"""), ("""result = {}
-""", """result = {}
-host = []
-"""), ("""result["launches"] = counts()""", """result["host"] = host
-result["launches"] = counts()""")],
-    # the same with each loop request's host time by operator
-    "loop_ops": [("import json, sys\n",
-                  "import collections, json, sys, time\n"
-                  "from torch.utils._python_dispatch import "
-                  "TorchDispatchMode\n"),
-                 ("""            det = serve(*pyr)
-""", """            by_op = collections.Counter()
-
-            class Timed(TorchDispatchMode):
-                def __torch_dispatch__(self, func, types, args=(),
-                                       kwargs=None):
-                    t0 = time.perf_counter()
-                    out = func(*args, **(kwargs or {}))
-                    by_op[str(func)] += (time.perf_counter() - t0) * 1e3
-                    return out
-
-            with Timed():
-                det = serve(*pyr)
-            ops.append({k: round(v, 3) for k, v in by_op.most_common(6)})
-"""), ("""result = {}
-""", """result = {}
-ops = []
-"""), ("""result["launches"] = counts()""", """result["ops"] = ops
-result["launches"] = counts()""")],
-    # the loop's requests with the main thread's CPU time beside the wall
-    # time, each thread's CPU time (from /proc), the Python threads, the
-    # trace and profile hooks, the CPUs and the intra-op threads
-    "loop_cpu": [("import json, sys\n", "import json, os, sys, threading, time\n"),
-                 ("""            det = serve(*pyr)
-""", """            ticks0 = thread_ticks()
-            w0, c0 = time.perf_counter(), time.thread_time()
-            det = serve(*pyr)
-            w1, c1 = time.perf_counter(), time.thread_time()
-            ticks1 = thread_ticks()
-            cpu.append({"wall_ms": round((w1 - w0) * 1e3, 3),
-                        "main_cpu_ms": round((c1 - c0) * 1e3, 3),
-                        "threads_cpu_ms": {k: v for k, v in sorted(
-                            ((k, round((ticks1.get(k, 0) - ticks0.get(k, 0))
-                              * 1e3 / os.sysconf("SC_CLK_TCK"), 1))
-                             for k in ticks1), key=lambda kv: -kv[1])[:5]},
-                        "hooks": [repr(sys.gettrace()), repr(sys.getprofile())],
-                        "py_threads": [t.name for t in threading.enumerate()]})
-"""), ("""result = {}
-""", """result = {}
-cpu = []
+# phase 8b's loader line, and the loader before the repair
+_LOAD = """    serve = load_exported_file(f"{spec['dir']}/{name}.pt2")"""
+_RAW_LOAD = """    serve = torch.export.load(f"{spec['dir']}/{name}.pt2").module()"""
 
 
-def thread_ticks():
-    out = {}
-    for tid in os.listdir("/proc/self/task"):
-        try:
-            with open(f"/proc/self/task/{tid}/stat") as f:
-                stat = f.read()
-        except OSError:
-            continue
-        name = stat[stat.index("(") + 1:stat.rindex(")")]
-        fields = stat[stat.rindex(")") + 2:].split()
-        out[f"{name}:{tid}"] = int(fields[11]) + int(fields[12])
-    return out
-
-
-"""), ("""result["launches"] = counts()""", """result["cpu"] = cpu
-result["env"] = {"affinity": len(os.sched_getaffinity(0)),
-                 "cpu_count": os.cpu_count(),
-                 "intra_op_threads": torch.get_num_threads(),
-                 "tasks": len(os.listdir("/proc/self/task"))}
-try:
-    with open("/sys/fs/cgroup/cpu.max") as f:
-        result["env"]["cpu.max"] = f.read().strip()
-except OSError:
-    pass
-result["launches"] = counts()""")],
-    # with loop_host: the garbage collector's time in each loop request
-    # (a gc.callbacks timer), by generation, and its collections
-    "gc_time": [("""result = {}
-""", """import gc
-gc_ms, gc_runs, _gc_t0 = [0.0, 0.0, 0.0], [0, 0, 0], [0.0]
-
-
-def _gc_timer(phase, info):
-    if phase == "start":
-        _gc_t0[0] = time.perf_counter()
-    else:
-        gc_ms[info["generation"]] += (time.perf_counter() - _gc_t0[0]) * 1e3
-        gc_runs[info["generation"]] += 1
-
-
-gc.callbacks.append(_gc_timer)
-gc_log = []
-result = {}
-"""), ("""            t0 = time.perf_counter()
-            det = serve(*pyr)
-""", """            g0, r0 = list(gc_ms), list(gc_runs)
-            t0 = time.perf_counter()
-            det = serve(*pyr)
-            gc_log.append({"gc_ms": [round(a - b, 3) for a, b in zip(gc_ms, g0)],
-                           "runs": [a - b for a, b in zip(gc_runs, r0)],
-                           "tracked": len(gc.get_objects())})
-"""), ("""result["host"] = host""", """result["host"] = host
-result["gc"] = gc_log""")],
-    "gc_off": [("""        serve(*requests[0])  # warm-up: builds the kernels
-""", """        serve(*requests[0])  # warm-up: builds the kernels
-        import gc
-        gc.disable()
-""")],
-    "gc_freeze": [("""    requests = [pyramid(seed) for seed in spec["seeds"]]
-""", """    requests = [pyramid(seed) for seed in spec["seeds"]]
-    import gc
-    gc.freeze()
-""")],
-    # the artifact loaded as torch.export.load(...).module() gives it,
-    # without load_exported's frame-stack chunk (the serving process
-    # before that loader padded the frame)
-    "raw_load": [("""    serve = load_exported_file(f"{spec['dir']}/{name}.pt2")""",
-                  """    serve = torch.export.load(f"{spec['dir']}/{name}.pt2").module()""")],
-    "no_counts": [("""            before = counts()["msda_fwd"]""",
-                   """            before = 0"""),
-                  ("""            per_forward.append(counts()["msda_fwd"] - before)""",
-                   """            per_forward.append(12)""")],
-}
-
-
-
-def _in_function(code: str) -> str:
-    """Phase 8b's serving loop moved from module level into a function
-    (its names stay global, for _INSTRUMENT)."""
-    head, body = code.split("result = {}\n", 1)
-    body = "result = {}\n" + body
-    return (head + "def main():\n    global result, serve, requests\n"
-            + "".join("    " + line if line.strip() else line
-                      for line in body.splitlines(True)) + "\n\nmain()\n")
-
-
-# What every process measures on a loaded program or a live model ``fn``
-# (one warm-up, 5 timed requests, a trace, a dispatch-mode op table) and
-# on the artifact's graph.  Shared by the exporting process (exec'd) and the
-# fresh ones (prepended to _FRESH).
-_MEASURE = r"""
-import collections, json, os, sys, time
-import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-
-
-def measure(fn, args, trace_dir):
-    from msda_tpu_torch.utils import trace
-    row = {}
+def live_ms(fn, pyramids) -> list:
+    """ms of each request of ``pyramids`` after one warm-up request."""
+    times = []
     with torch.inference_mode():
-        fn(*args)
+        fn(*pyramids[0])
         torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
+        for pyr in pyramids:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
             start.record()
-            fn(*args)
-            host = (time.perf_counter() - t0) * 1e3
+            fn(*pyr)
             end.record()
             torch.cuda.synchronize()
-            times.append([round(start.elapsed_time(end), 3), round(host, 3)])
-        row["ms_and_enqueue_ms"] = times
-        with trace(trace_dir) as t:
-            fn(*args)
-        kernels = t.kernel_ms()
-        row["trace"] = {
-            "window_ms": round(t.window_ms, 3),
-            "busy_ms": round(t.busy_ms(), 3),
-            "device_events": len(t._device_events()),
-            "top": {k[:70]: round(v, 3)
-                    for k, v in list(kernels.items())[:6]}}
-        by_op = collections.Counter()
-        calls = collections.Counter()
-
-        class Timed(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                t0 = time.perf_counter()
-                out = func(*args, **(kwargs or {}))
-                by_op[str(func)] += (time.perf_counter() - t0) * 1e3
-                calls[str(func)] += 1
-                return out
-
-        t0 = time.perf_counter()
-        with Timed():
-            fn(*args)
-        torch.cuda.synchronize()
-        row["dispatch_mode_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
-        row["host_ms_by_op"] = {f"{k} x{calls[k]}": round(v, 3)
-                                for k, v in by_op.most_common(8)}
-    return row
-
-
-def graph_stats(program):
-    targets = collections.Counter(str(n.target) for n in program.graph.nodes
-                                  if n.op == "call_function")
-    casts = [n for n in program.graph.nodes
-             if str(n.target) in ("aten._to_copy.default", "aten.to.dtype",
-                                  "aten.to.dtype_layout")]
-    consts = collections.Counter(
-        f"{str(v.dtype)[6:]}@{v.device}"
-        for v in list(program.constants.values())
-        + list(program.state_dict.values()) if isinstance(v, torch.Tensor))
-    return {"nodes": len(program.graph.nodes),
-            "top_targets": dict(targets.most_common(6)),
-            "casts": len(casts),
-            "cast_kwargs": sorted({str(sorted(n.kwargs.items()))[:120]
-                                   for n in casts})[:4],
-            "constants": dict(consts),
-            "requires_grad_constants": sum(
-                1 for v in program.constants.values()
-                if isinstance(v, torch.Tensor) and v.requires_grad)}
-"""
-
-# appended to a phase 8b serving process (after _MEASURE): its bf16
-# program measured once more, on its first request's pyramid
-_INSTRUMENT = r"""
-result["measure"] = measure(serve, requests[0], spec["dir"] + "/trace_8b")
-print(json.dumps(result))
-"""
-
-_FRESH = r"""
-import json, sys
-sys.path.insert(0, sys.argv[1])
-spec = json.loads(sys.argv[2])
-pre = spec["pre"]
-import numpy as np
-import torch
-if pre in ("tf32off", "matmul_ieee"):
-    torch.backends.cuda.matmul.allow_tf32 = False
-if pre in ("tf32off", "cudnn_off"):
-    torch.backends.cudnn.allow_tf32 = False
-from msda_tpu_torch.utils.export import load_exported_file
-if pre == "models":
-    import msda_tpu_torch.models  # noqa: F401
-if pre == "live":
-    from msda_tpu_torch.models import DeformableDetr, init_parameters
-    small = init_parameters(DeformableDetr(
-        num_classes=5, in_channels=(16, 16), emb_dim=64, num_heads=2,
-        num_points=2, num_queries=10, num_encoder_layers=1,
-        num_decoder_layers=1, ffn_dim=64, compute_dtype=torch.bfloat16,
-        device="cuda"), torch.Generator().manual_seed(0)).eval()
-    with torch.inference_mode():
-        small([torch.randn(1, 8, 8, 16, device="cuda"),
-               torch.randn(1, 4, 4, 16, device="cuda")], ((8, 8), (4, 4)))
-    torch.cuda.synchronize()
-if pre == "export_tiny":
-    from msda_tpu_torch.utils.export import export_fn
-    w = torch.randn(32, 32, device="cuda")
-    export_fn(lambda x: torch.nn.functional.linear(
-        x.to(torch.bfloat16), w.to(torch.bfloat16)),
-        torch.randn(4, 32, device="cuda"))
-rng = np.random.default_rng(spec["seed"])
-pyramid = [torch.from_numpy(rng.standard_normal(
-    (spec["batch"], h, w, c), dtype=np.float32)).cuda()
-    for (h, w), c in zip(spec["shapes"], spec["channels"])]
-if pre == "f32first":
-    first = load_exported_file(spec["dir"] + "/f32.pt2")
-    with torch.inference_mode():
-        for _ in range(4):
-            first(*pyramid)
-    torch.cuda.synchronize()
-path = spec["dir"] + "/bf16.pt2"
-serve = load_exported_file(path)
-row = measure(serve, pyramid, spec["dir"] + "/trace_" + pre)
-row["graph"] = graph_stats(torch.export.load(path))
-row["flags"] = [torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32,
-                torch.get_float32_matmul_precision()]
-print(json.dumps(row))
-"""
+            times.append(round(start.elapsed_time(end), 3))
+    return times
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__)
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--turns", type=int, default=2,
+                    help="raw, padded pairs of serving processes")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "export_bisect.log"))
-    ap.add_argument("--pre", default=",".join(PRE),
-                    help="the fresh processes' pre-steps, comma-separated")
-    ap.add_argument("--phase8b", default=None, metavar="ORDERS",
-                    help="run chip_smoke.py's phases 4 and 8b instead of "
-                         "the bf16 export above, serve 8b's artifacts again "
-                         "with its serving process in each ';'-separated "
-                         "order of models, then run --pre's processes on "
-                         "8b's bf16 artifact")
-    ap.add_argument("--variants", default=None, metavar="LIST",
-                    help="after the bf16 export, serve it with phase 8b's "
-                         "serving process changed as each name of "
-                         "SERVE_VARIANTS says ('+' joins several; a 'func_' "
-                         "prefix also moves its loop into a function), "
-                         "comma-separated, "
-                         "instead of the measuring processes")
-    ap.add_argument("--instrument", action="store_true",
-                    help="with --variants: after its requests, each serving "
-                         "process measures one more request as the "
-                         "measuring processes do (trace, operator table)")
     args = ap.parse_args(argv)
     smi = cs.setup()
-    if args.phase8b is not None:
-        return _phase8b(smi, args)
     lines = []
 
     def log(msg):
         print(msg, flush=True)
         lines.append(msg)
 
-    scope: dict = {}
-    exec(_MEASURE, scope)
-    measure, graph_stats = scope["measure"], scope["graph_stats"]
     os.makedirs(OUT_DIR, exist_ok=True)
     image_sizes = torch.tensor([cs.IMAGE_HW] * cs.BATCH, device=cs.DEVICE)
-    pyramid = cs.make_pyramid(cs.REQUEST_SEEDS[0])
     model = cs.build_model("auto", True, torch.bfloat16)
 
     def live(*pyr):
         return cs.postprocess(model(list(pyr), cs.SLICE_SHAPES), top_k=100,
                               scoring="sigmoid", image_sizes=image_sizes)
 
-    blob = export_fn(live, *pyramid)
-    save_exported(blob, os.path.join(OUT_DIR, "bf16.pt2"))
-    program = torch.export.export(_Function(live), tuple(pyramid))
-    log(f"exporting process, graph before save: "
-        f"{json.dumps(graph_stats(program))}")
-    loaded = load_exported(blob)
-    for tag, fn in (("live", live), ("loaded", loaded), ("live", live)):
-        row = measure(fn, pyramid, os.path.join(OUT_DIR, "trace_" + tag))
-        log(f"exporting process, {tag} bf16: {json.dumps(row)} on {smi}")
-    del model, loaded, program, blob
+    pyramids = [cs.make_pyramid(seed) for seed in cs.REQUEST_SEEDS]
+    save_exported(export_fn(live, *pyramids[0]),
+                  os.path.join(OUT_DIR, "bf16.pt2"))
+    log(f"exporting process, live bf16: ms {live_ms(live, pyramids)} "
+        f"on {smi}")
+    del model, pyramids
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    if args.variants is not None:
-        spec = {"dir": OUT_DIR, "seeds": cs.REQUEST_SEEDS, "batch": cs.BATCH,
-                "shapes": cs.SLICE_SHAPES, "channels": cs.IN_CHANNELS,
-                "models": ["bf16"]}
-        for name in args.variants.split(","):
-            code = cs._SERVE_EXPORTED
-            for part in name.removeprefix("func_").split("+"):
-                for old, new in SERVE_VARIANTS[part]:
-                    if old not in code:
-                        raise ValueError(f"variant {name}: {old!r} not "
-                                         "found")
-                    code = code.replace(old, new)
-            if name.startswith("func_"):
-                code = _in_function(code)
-            if args.instrument:
-                code += _MEASURE + _INSTRUMENT
+    if _LOAD not in cs._SERVE_EXPORTED:
+        raise ValueError("phase 8b's loader line was not found")
+    codes = {"raw": cs._SERVE_EXPORTED.replace(_LOAD, _RAW_LOAD),
+             "padded": cs._SERVE_EXPORTED}
+    spec = {"dir": OUT_DIR, "models": ["bf16"], "seeds": cs.REQUEST_SEEDS,
+            "batch": cs.BATCH, "shapes": cs.SLICE_SHAPES,
+            "channels": cs.IN_CHANNELS}
+    failed = False
+    for _ in range(args.turns):
+        for form, code in codes.items():
             run = subprocess.run([sys.executable, "-c", code, ROOT,
                                   json.dumps(spec)], capture_output=True,
                                  text=True, timeout=600)
             if run.returncode != 0:
-                log(f"8b variant {name}: FAILED\n{run.stderr[-3000:]}")
+                failed = True
+                log(f"fresh process, {form} load: FAILED (exit "
+                    f"{run.returncode})\n{run.stderr[-3000:]}")
                 continue
             served = json.loads(run.stdout.strip().splitlines()[-1])
-            log(f"8b variant {name}: bf16 ms "
-                f"{[round(t, 3) for t in served['bf16']['ms']]}"
-                + "".join(f"; {k} {json.dumps(served[k])}"
-                          for k in ("host", "gc", "ops", "cpu", "env",
-                                    "measure")
-                          if k in served)
-                + f" on {smi}")
-        args.pre = ""
-    spec = {"dir": OUT_DIR, "seed": cs.REQUEST_SEEDS[0], "batch": cs.BATCH,
-            "shapes": cs.SLICE_SHAPES, "channels": cs.IN_CHANNELS}
-    for pre in filter(None, args.pre.split(",")):
-        run = subprocess.run(
-            [sys.executable, "-c", _MEASURE + _FRESH, ROOT,
-             json.dumps(dict(spec, pre=pre))],
-            capture_output=True, text=True, timeout=600)
-        if run.returncode != 0:
-            log(f"fresh process, pre {pre}: FAILED (exit {run.returncode})"
-                f"\n{run.stderr[-3000:]}")
-            continue
-        row = run.stdout.strip().splitlines()[-1]
-        log(f"fresh process, pre {pre}: {row} on {smi}")
+            log(f"fresh process, {form} load: bf16 ms "
+                f"{[round(t, 3) for t in served['bf16']['ms']]} on {smi}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         f.write("\n".join(lines) + "\n")
-
-
-def _phase8b(smi: str, args) -> None:
-    """Phases 4 and 8b as ``chip_smoke.py`` runs them, then 8b's serving
-    process again in other orders, then the measuring processes."""
-    lines = []
-
-    def log(msg):
-        print(msg, flush=True)
-        lines.append(msg)
-
-    _, serve_ms = cs.serve(smi)
-    cs.export_path(smi, serve_ms)
-    spec = {"dir": cs.EXPORT_DIR, "seeds": cs.REQUEST_SEEDS,
-            "batch": cs.BATCH, "shapes": cs.SLICE_SHAPES,
-            "channels": cs.IN_CHANNELS}
-    for order in args.phase8b.split(";"):
-        spec["models"] = order.split(",")
-        run = subprocess.run([sys.executable, "-c", cs._SERVE_EXPORTED, ROOT,
-                              json.dumps(spec)], capture_output=True,
-                             text=True, timeout=600)
-        if run.returncode != 0:
-            log(f"phase 8b process, order {order}: FAILED\n"
-                f"{run.stderr[-3000:]}")
-            continue
-        served = json.loads(run.stdout.strip().splitlines()[-1])
-        log(f"phase 8b process, order {order}: " + "; ".join(
-            f"{m} ms {served[m]['ms']}" for m in spec["models"])
-            + f" (live, phase 4: {serve_ms}) on {smi}")
-    spec = {"dir": cs.EXPORT_DIR, "seed": cs.REQUEST_SEEDS[0],
-            "batch": cs.BATCH, "shapes": cs.SLICE_SHAPES,
-            "channels": cs.IN_CHANNELS}
-    for pre in args.pre.split(","):
-        run = subprocess.run(
-            [sys.executable, "-c", _MEASURE + _FRESH, ROOT,
-             json.dumps(dict(spec, pre=pre))],
-            capture_output=True, text=True, timeout=600)
-        row = (run.stdout.strip().splitlines() or [""])[-1]
-        log(f"fresh process on 8b's artifact, pre {pre}: "
-            f"{row if run.returncode == 0 else run.stderr[-3000:]} on {smi}")
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        f.write("\n".join(lines) + "\n")
+    if failed:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -28,13 +28,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import subprocess
 
 import torch
 
 from .ops import _build, cuda_bwd, cuda_fwd, cuda_stream, stream
 from .ops.reference import native_msda_backward, native_multiscale_deformable_attention
-from .utils.bench import reference_workload, timeit_op
+from .utils.bench import card_identity, reference_workload, timeit_op
 
 __all__ = ["CANDIDATES", "STREAM_CANDIDATES", "BIG_SHAPES", "variants",
            "swapped", "sweep", "main"]
@@ -190,10 +189,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("autotune times the CUDA kernels: no card visible")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = ", ".join(card_identity())
     print(f"# autotune{' --stream' if args.stream else ''} @ N="
           f"{args.queries}, {args.dtype}, {args.iters} launches a run, on "
           f"{smi}", flush=True)

@@ -37,13 +37,13 @@ import argparse
 import csv
 import math
 import os
-import subprocess
 import sys
 
 import torch
 
 from .ops import multiscale_deformable_attention, stream
-from .utils import device_memory_stats, reference_workload, timeit_op
+from .utils import (card_identity, device_memory_stats, reference_workload,
+                    timeit_op)
 
 PYRAMIDS = {
     "ref": ((64, 64), (32, 32), (16, 16), (8, 8)),
@@ -106,21 +106,6 @@ def bench(impl, dtype, n, pyramid, device, memory=True):
                 fwdbwd_ms=round(t_fb, 4), peak_mem_mb=round(mem, 1))
 
 
-def power_limit(device) -> str:
-    """The card's power limit as ``nvidia-smi`` prints it ("700.00 W"), or
-    "" when ``nvidia-smi`` cannot say."""
-    index = torch.device(device).index
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit",
-             "--format=csv,noheader",
-             f"--id={torch.cuda.current_device() if index is None else index}"],
-            capture_output=True, text=True, timeout=60)
-    except (OSError, subprocess.TimeoutExpired):
-        return ""
-    return out.stdout.strip() if out.returncode == 0 else ""
-
-
 def measured_rows(out: str) -> dict:
     """The rows an earlier run of this sweep left in ``out`` or in
     ``out + ".partial"``, by ``(impl, dtype, num_queries)``; the numbers
@@ -179,8 +164,9 @@ def main(argv=None) -> list[dict]:
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device is visible; pass --device cpu "
                              "to time impl='reference' on the host")
-        name = torch.cuda.get_device_name(device)
-        card = {"device": name, "power_limit": power_limit(device)}
+        name, limit = card_identity(device)
+        name = name or torch.cuda.get_device_name(device)
+        card = {"device": name, "power_limit": limit}
     else:
         if any(impl == "cuda" for impl, _ in configs):
             raise SystemExit("impl 'cuda' needs a CUDA device; use "

@@ -26,8 +26,9 @@ Exit status: 0 when every expected line was printed with a finite value.
 Without a card (and without ``--device cpu``) it prints one line with an
 ``"error"`` key and exits 2; it never falls back to the CPU.  A line whose
 measurement fails is printed with ``"value": null`` and an ``"error"``,
-and the run exits 1.  Standard error gets, at the end, the kernels'
-launch counts in this process (``launches {...}``).
+and the run exits 1.  Standard error gets, at the end, every kernel's
+launch count in this process (``launches {...}``: K1, K2 and the three
+streamed kernels).
 """
 
 from __future__ import annotations
@@ -74,13 +75,11 @@ def measure(dtype, mode: str, impl: str, device, iters: int, repeats: int,
 
 
 def _launches() -> dict:
-    """The kernels' launch counts in this process (0 when a wrapper was
-    never imported)."""
-    counts = {}
-    for name in ("cuda_fwd", "cuda_bwd"):
-        module = sys.modules.get(f"{__package__}.ops.{name}")
-        counts[f"msda_{name[5:]}"] = getattr(module, "LAUNCHES", 0)
-    return counts
+    """Every kernel's launch count in this process, read from its wrapper's
+    counter (importing a wrapper builds nothing)."""
+    from .ops import cuda_bwd, cuda_fwd, cuda_stream
+    return {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
+            cuda_bwd.KERNEL: cuda_bwd.LAUNCHES, **cuda_stream.LAUNCHES}
 
 
 def _line(metric: str, ms, anchor: float, error: str | None = None) -> dict:

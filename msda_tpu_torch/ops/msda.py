@@ -122,10 +122,6 @@ def resolved_impl(impl: str, img_shapes, dtype,
     return impl
 
 
-def _resolve_impl(impl: str, img: torch.Tensor, shapes) -> str:
-    return resolved_impl(impl, shapes, img.dtype, img.device)
-
-
 def multiscale_deformable_attention(
     img,
     img_shapes,
@@ -178,7 +174,7 @@ def multiscale_deformable_attention(
             "pyramid and the level shapes disagree."
         )
     _check_inputs(img, shapes, sampling_points, attention_weights)
-    impl = _resolve_impl(impl, img, shapes)
+    impl = resolved_impl(impl, shapes, img.dtype, img.device)
     if impl == "cuda":
         return msda_fwd(
             img.contiguous(), sampling_points.contiguous(),

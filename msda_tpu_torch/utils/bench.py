@@ -3,7 +3,8 @@
 ``reference_workload`` builds the benchmark's inputs from a numpy seed, so
 the same tensors reach the CPU tests and the card; ``timeit_op`` times an op
 on the device it runs on; ``device_memory_stats`` reads the CUDA caching
-allocator's counters.  ``msda_bound`` is the least time an H100 could take
+allocator's counters; ``card_identity`` reads the card's name and power
+limit from ``nvidia-smi``, which every card number is written beside.  ``msda_bound`` is the least time an H100 could take
 for one MSDA call (the kernels' roofline), from its shapes and, where the
 data decides it, ``touched_rows``.
 """
@@ -11,6 +12,7 @@ data decides it, ``touched_rows``.
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 from typing import Callable
 
@@ -19,7 +21,8 @@ import torch
 
 from ..ops.reference import _geometry, level_shapes
 
-__all__ = ["timeit_op", "device_memory_stats", "reference_workload",
+__all__ = ["timeit_op", "device_memory_stats", "card_identity",
+           "reference_workload",
            "REFERENCE_SHAPES", "roofline_ms", "msda_bound", "touched_rows",
            "H100_BYTES_PER_S", "H100_F32_FLOPS"]
 
@@ -210,3 +213,25 @@ def device_memory_stats(device="cuda") -> dict:
         "peak_bytes_in_use": torch.cuda.max_memory_allocated(device),
         "bytes_limit": torch.cuda.get_device_properties(device).total_memory,
     }
+
+
+def card_identity(device="cuda") -> tuple[str, str]:
+    """The card's name and power limit from one ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` call, e.g.
+    ``("NVIDIA H100 80GB HBM3", "700.00 W")``; ``("", "")`` when
+    ``nvidia-smi`` cannot say."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={index}"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return "", ""
+    line = out.stdout.strip()
+    if out.returncode != 0 or ", " not in line:
+        return "", ""
+    name, limit = line.splitlines()[0].rsplit(", ", 1)
+    return name, limit

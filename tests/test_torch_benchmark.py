@@ -123,3 +123,24 @@ def test_without_resume_every_row_is_measured(tmp_path, monkeypatch):
     monkeypatch.setattr(benchmark, "bench", _fake_bench(calls))
     benchmark.main(ARGS + ["--out", str(out)])
     assert calls == [10, 100]
+
+
+@pytest.mark.parametrize("stdout,returncode,want", [
+    ("NVIDIA H100 80GB HBM3, 700.00 W\n", 0,
+     ("NVIDIA H100 80GB HBM3", "700.00 W")),
+    ("", 9, ("", "")),
+])
+def test_card_identity_reads_one_nvidia_smi_line(monkeypatch, stdout,
+                                                 returncode, want):
+    from msda_tpu_torch.utils import bench
+
+    seen = []
+
+    def run(cmd, **kwargs):
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, returncode, stdout, "")
+
+    monkeypatch.setattr(bench.subprocess, "run", run)
+    assert bench.card_identity("cuda:0") == want
+    assert seen == [["nvidia-smi", "--query-gpu=name,power.limit",
+                     "--format=csv,noheader", "--id=0"]]

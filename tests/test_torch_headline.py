@@ -78,7 +78,12 @@ def test_cpu_small_workload_prints_the_reference_line(capsys):
     ratio = 22.78 / line["value"]
     assert abs(line["vs_baseline"] - ratio) <= (
         5e-5 + ratio * 0.0005 / line["value"])
-    assert 'launches {"msda_fwd": ' in out.err
+    # every kernel's count, the streamed kernels' too; the CPU launches none
+    launches = [json.loads(text[len("launches "):])
+                for text in out.err.splitlines()
+                if text.startswith("launches ")]
+    assert launches == [{"msda_fwd": 0, "msda_bwd": 0, "msda_stream_bin": 0,
+                         "msda_stream_fwd": 0, "msda_stream_bwd": 0}]
 
 
 def test_no_card_prints_an_error_and_fails():
