@@ -6,10 +6,10 @@
 Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
 
 1. Setup: print the card's name and power limit, turn TF32 off, build the
-   CUDA kernels (K1 forward, K2 backward, and the streamed K3' forward and
-   K4' + K5' backward with their binning) from ``msda_tpu_torch/csrc``, one
-   ``nvcc`` per source, started together, and print the build time and each
-   kernel's registers and spills.
+   CUDA kernels (K1 forward, K2 backward, the streamed K3' forward and
+   K4' + K5' backward with their binning, and the auction matcher) from
+   ``msda_tpu_torch/csrc``, one ``nvcc`` per source, started together, and
+   print the build time and each kernel's registers and spills.
 2. Kernels vs plain versions: K1 against
    ``native_multiscale_deformable_attention`` and K2 against
    ``native_msda_backward`` on the same seeded inputs, at the reference
@@ -25,10 +25,34 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    (forward + postprocess) in f32 and in bf16, under inference_mode; each
    forward must launch K1 12 times.
 5. Training, the main path of the backward: the full-width two-stage model,
-   batch 2, focal loss + auction matcher + aux and proposal losses, AdamW;
-   one warm-up step and 5 steps on a fixed synthetic batch, in f32 and in
-   bf16, then one step with remat=True.  Each step must launch K1 12 times
-   (24 with remat) and K2 12 times; the losses must be finite and fall.
+   batch 2, focal loss + auction matcher + aux and proposal losses,
+   AdamW(capturable=True), through ``make_train_step``, whose step on a
+   card is captured as a CUDA graph: one warm-up step, the capture (and its
+   replay) and 4 replays on a fixed synthetic batch, in f32 and in bf16,
+   then the warm-up, the capture and one replay with remat=True.  Each
+   step must launch K1 12 times (24 with remat), K2 12 times and the
+   auction kernel 6 times (a replay adds the captured step's launches to
+   the counters); the losses must be finite and fall.
+5b. The auction kernel and the graphed step:
+   a. the auction kernel against ``matcher.plain_auction`` at (B, N, M) =
+      (2, 300, 50), (16, 300, 50) and (2, 900, 300) (the last past shared
+      memory): uniform, quantised (ties), constant and masked (5-9 of the
+      target slots real) costs; a square (2, 64, 64) cost with 2000, 1, 3
+      and 17 rounds; and the 6 costs of one f32 step of phase 5's batch:
+      ``query_idx`` and ``converged`` equal, each case's time beside the
+      plain loop's and the rounds it took;
+   b. one eager step under ``torch.cuda.set_sync_debug_mode("error")``: no
+      host sync;
+   c. the graphed step against the eager one on phase 5's model and
+      batch, f32 and bf16: the captured step's loss (within 1e-5 relative
+      f32, 1e-2 bf16) and every parameter after that one SGD step (within
+      phase 9b's 1e-6 of the floored scale), then 5 AdamW steps, whose
+      losses must be finite, fall and agree with the eager run's within
+      1e-3 relative;
+   d. one f32 replay under ``utils.profile.trace``: 12 K1, 12 K2 and 6
+      auction launches in the trace, the busy time and the idle share;
+   e. the step's time, eager and graphed in turns, f32 and bf16, with
+      ``max_memory_allocated``.
 6. Timing: K1 and K2 against their plain versions, in turns, each beside
    its bound (``utils.bench.msda_bound``: the least time the card could
    take, from the bytes the call must move and the operations it must do,
@@ -71,11 +95,11 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       forward launching K1 12 times; its detections against the live
       model's (labels equal, scores and boxes within 1e-5 f32, 1e-2 bf16),
       its request times beside phase 4's;
-   c. one f32 serving request and one f32 training step under
-      ``utils.profile.trace``: the window, device busy time and idle
-      share, the 10 kernels with the most device time, and the spans
-      (encoder, decoder, postprocess; loss + matcher, backward,
-      optimizer);
+   c. one f32 serving request and one eager f32 training step
+      (``step.__wrapped__``) under ``utils.profile.trace``: the window,
+      device busy time and idle share, the 10 kernels with the most device
+      time, and the spans (encoder, decoder, postprocess; loss + matcher,
+      backward, optimizer), beside 5b's graphed replay;
    d. ``python -m msda_tpu_torch.capture_trace --mode fwdbwd`` and
       ``python -m msda_tpu_torch.memory_report`` in-process at N=10,000.
 9. The device mesh, detection parity and the launch-constant sweep:
@@ -109,8 +133,9 @@ last is a JSON summary of the kernels (launches on the main paths, the
 exported model's, the mesh path's, the HF models' and the headline's
 included, and per
 training step, error, time, plain time
-and bound at the encoder shape for K1/K2 and at the 256-base pyramid for
-the streamed kernels); the last line is ``{"ok": true, "device": {...}}``.
+and bound at the encoder shape for K1/K2, at the 256-base pyramid for
+the streamed kernels, and on the costs of a step's first head for the
+auction kernel); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -132,7 +157,10 @@ from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, library,
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
-from msda_tpu_torch.parallel import detection_loss, make_mesh, make_train_step, shard_params  # noqa: E402
+from msda_tpu_torch.parallel import cuda_matcher, detection_loss, make_mesh, make_train_step, shard_params  # noqa: E402
+from msda_tpu_torch.parallel import train as train_module  # noqa: E402
+from msda_tpu_torch.parallel.matcher import plain_auction  # noqa: E402
+from msda_tpu_torch.parallel.train import launch_counts as launches  # noqa: E402
 from msda_tpu_torch.utils import (annotate, card_identity, export_fn,  # noqa: E402
                                   msda_bound, reference_workload, roofline_ms,
                                   save_exported, touched_rows, trace)
@@ -165,6 +193,9 @@ PATH_SHAPES = tuple((512 >> i, 512 >> i) for i in range(4))
 # mean); the Deformable DETR optimizer (AdamW, lr 2e-4, weight decay 1e-4)
 TARGET_SLOTS = 50
 TRAIN_STEPS = 5
+# the auction kernel's launches a step: the final head and the 5 aux heads
+# of box refinement (the proposal loss matches by nearest anchor)
+AUCTIONS_PER_STEP = 6
 LOSS_KW = dict(matcher="auction", class_loss="focal", aux_weight=1.0,
                enc_weight=1.0, l1_weight=5.0, giou_weight=2.0)
 
@@ -203,8 +234,12 @@ KERNELS = {  # name: (module, source, TPU kernel(s) it replaces)
     # the band selection inside K3-K5 (_band_factors)
     "msda_stream_bin": (cuda_stream, STREAM_SOURCE,
                         "msda_tpu/ops/pallas_stream.py:187"),
+    # no Pallas kernel: the XLA while_loop of the JAX matcher
+    cuda_matcher.KERNEL: (cuda_matcher, "msda_tpu_torch/csrc/msda_auction.cu",
+                          "msda_tpu/parallel/matcher.py:71"),
 }
-LIBRARIES = (cuda_fwd.KERNEL, cuda_bwd.KERNEL, cuda_stream.LIBRARY)
+LIBRARIES = (cuda_fwd.KERNEL, cuda_bwd.KERNEL, cuda_stream.LIBRARY,
+             cuda_matcher.KERNEL)
 
 
 def log(msg: str) -> None:
@@ -226,7 +261,7 @@ def setup() -> str:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.build(list(LIBRARIES))
-    for module in (cuda_fwd, cuda_bwd, cuda_stream):
+    for module in (cuda_fwd, cuda_bwd, cuda_stream, cuda_matcher):
         module.load()
     log(f"build: {', '.join(LIBRARIES)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -238,14 +273,8 @@ def setup() -> str:
     return smi
 
 
-def launches() -> dict:
-    """Every kernel's launch count."""
-    return {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
-            cuda_bwd.KERNEL: cuda_bwd.LAUNCHES, **cuda_stream.LAUNCHES}
-
-
 def reset_launches() -> None:
-    cuda_fwd.LAUNCHES = cuda_bwd.LAUNCHES = 0
+    cuda_fwd.LAUNCHES = cuda_bwd.LAUNCHES = cuda_matcher.LAUNCHES = 0
     for name in cuda_stream.LAUNCHES:
         cuda_stream.LAUNCHES[name] = 0
 
@@ -610,21 +639,28 @@ def serve(smi: str) -> tuple[dict, dict]:
     return counts, means
 
 
-def train(smi: str) -> tuple[dict, dict, dict]:
-    """Phase 5: the main path of the backward.  Returns every kernel's
-    launches over the training run and in one f32 step (no remat), and the
-    mean step time in ms of each run."""
+def adamw(model):
+    """The Deformable DETR optimizer, capturable (the graphed step)."""
+    return torch.optim.AdamW(model.parameters(), lr=2e-4, weight_decay=1e-4,
+                             capturable=True)
+
+
+def train(smi: str) -> tuple[dict, dict]:
+    """Phase 5: the main path of the backward, through the graphed step
+    (the first call a warm-up, the second the capture and its replay).
+    Returns every kernel's launches over the training run and in one f32
+    step (no remat)."""
     pyramid, targets = make_pyramid(30), make_targets(31)
     reset_launches()
-    steps, per_step, means = 0, {}, {}
-    expected = {cuda_fwd.KERNEL: 0, cuda_bwd.KERNEL: 0}
+    steps, per_step = 0, {}
+    expected = {cuda_fwd.KERNEL: 0, cuda_bwd.KERNEL: 0,
+                cuda_matcher.KERNEL: 0}
     runs = (("f32", None, False, 1 + TRAIN_STEPS),
             ("bf16", torch.bfloat16, False, 1 + TRAIN_STEPS),
-            ("f32 remat", None, True, 1))
+            ("f32 remat", None, True, 3))
     for name, compute_dtype, remat, n_steps in runs:
         model = build_model("auto", True, compute_dtype, remat).train()
-        optimizer = torch.optim.AdamW(model.parameters(), lr=2e-4,
-                                      weight_decay=1e-4)
+        optimizer = adamw(model)
         step = make_train_step(model, optimizer, SLICE_SHAPES,
                                return_metrics=True, **LOSS_KW)
         torch.cuda.synchronize()
@@ -643,30 +679,33 @@ def train(smi: str) -> tuple[dict, dict, dict]:
             steps += 1
             counts = launches()
             counts = {k: counts[k] - before[k] for k in counts}
-            launched = counts[cuda_fwd.KERNEL], counts[cuda_bwd.KERNEL]
+            launched = (counts[cuda_fwd.KERNEL], counts[cuda_bwd.KERNEL],
+                        counts[cuda_matcher.KERNEL])
             if name == "f32":
                 per_step = counts
             losses.append(loss.item())
             times.append(start.elapsed_time(end))
-            expected[cuda_fwd.KERNEL] += k1_per_step
-            expected[cuda_bwd.KERNEL] += LAUNCHES_PER_FORWARD
-            log(f"train {name} step {i} ({'warm-up' if i == 0 else 'timed'})"
-                f": loss {losses[-1]:.6f} matcher_converged "
-                f"{bool(metrics['matcher_converged'])} {times[-1]:.3f} ms, "
-                f"K1 {launched[0]} K2 {launched[1]} launches")
-            if launched != (k1_per_step, LAUNCHES_PER_FORWARD):
+            want = (k1_per_step, LAUNCHES_PER_FORWARD, AUCTIONS_PER_STEP)
+            for kernel, n in zip(expected, want):
+                expected[kernel] += n
+            what = ("warm-up", "capture + replay")[i] if i < 2 else "replay"
+            log(f"train {name} step {i} ({what}): loss {losses[-1]:.6f} "
+                f"matcher_converged {bool(metrics['matcher_converged'])} "
+                f"{times[-1]:.3f} ms, K1 {launched[0]} K2 {launched[1]} "
+                f"auction {launched[2]} launches")
+            if launched != want:
                 raise AssertionError(
-                    f"a {name} training step launched (K1, K2) {launched}, "
-                    f"expected {(k1_per_step, LAUNCHES_PER_FORWARD)}")
+                    f"a {name} training step launched (K1, K2, auction) "
+                    f"{launched}, expected {want}")
             if not np.isfinite(losses[-1]):
                 raise AssertionError(f"{name}: loss is not finite")
         peak = torch.cuda.max_memory_allocated() / 2**30
-        timed = times[1:] or times
-        means[name] = sum(timed) / len(timed)
+        timed = times[2:]  # the replays
         log(f"train {name}: batch {BATCH} at {IMAGE_HW[0]}x{IMAGE_HW[1]}, "
-            f"mean step {sum(timed) / len(timed):.3f} ms over {len(timed)} "
+            f"mean step {sum(timed) / len(timed):.3f} ms over "
+            f"{len(timed)} replayed "
             f"step(s), peak allocated {peak:.3f} GiB on {smi}")
-        if n_steps > 1 and not losses[-1] < losses[0]:
+        if n_steps == 1 + TRAIN_STEPS and not losses[-1] < losses[0]:
             raise AssertionError(f"{name}: the loss did not fall on a "
                                  f"repeated batch: {losses}")
         for p in model.parameters():
@@ -678,7 +717,311 @@ def train(smi: str) -> tuple[dict, dict, dict]:
     check_path_launches("training", counts, expected)
     log(f"training: {steps} steps, launches {counts}; per f32 step "
         f"{per_step}")
-    return counts, per_step, means
+    return counts, per_step
+
+
+# Phase 5b: the auction kernel against its plain version, and the train
+# step captured as a CUDA graph against the eager step.
+AUCTION_EPS = 1e-3  # the matcher's default bid increment
+# the graphed step's loss against the eager step's, relative: the same
+# forward on the same parameters (bf16: its usual half-type bar)
+GRAPH_LOSS_TOL = {"f32": 1e-5, "bf16": 1e-2}
+# every parameter after one SGD step, graphed against eager, of the floored
+# scale (parameter_error): f32 phase 9b's bar, since only K2's f32 atomics
+# differ; in bf16 those atomics are rounded to bf16 gradients, which two
+# eager steps give up to about an ulp (2**-7) apart, so the bf16 bar is its
+# loss bar (two eager bf16 steps: 3.40e-4 apart, NVIDIA H100 80GB HBM3)
+GRAPH_PARAM_TOL = {"f32": 1e-6, "bf16": 1e-2}
+# the losses of a warm-up and 5 AdamW steps, graphed against eager,
+# relative: the runs part by K2's run-dependent atomics, which AdamW's
+# first steps turn into full-size updates of the parameters with
+# near-zero gradients.  f32: every loss (two eager runs part by about
+# 3e-4).  bf16: two eager runs part by up to 8.4e-2 after 5 steps, so the
+# loss after the first update is held to the bf16 loss bar, the later
+# ones to being finite and falling only (NVIDIA H100 80GB HBM3)
+GRAPH_ADAMW_TOL = 1e-3
+GRAPH_LR = 2e-4  # SGD, as phase 9b
+TURN_STEPS = 5  # steps a turn when eager and graphed steps are timed
+# the kernels of a step in a trace: (launch counter, name in the trace)
+TRACED = ((cuda_fwd.KERNEL, "msda_fwd_kernel"),
+          (cuda_bwd.KERNEL, "msda_bwd_kernel"),
+          (cuda_matcher.KERNEL, "msda_auction_kernel"))
+
+
+def parameter_error(got_model, want_model) -> tuple[float, str, float]:
+    """The worst parameter difference between two models: over each
+    tensor's largest value, at least GRAD_FLOOR of the model's largest (a
+    tensor that starts at zero, like the MSDA query projections' weights,
+    holds lr x its gradient after a step, whose last bits K2's atomic
+    order sets).  Returns ``(worst, its parameter, worst over the tensor's
+    largest alone)``."""
+    floor = GRAD_FLOOR * max(q.abs().max().item()
+                             for q in want_model.parameters())
+    worst, worst_name, strict = -1.0, "", 0.0
+    for (name, p), q in zip(got_model.named_parameters(),
+                            want_model.parameters()):
+        diff = (p - q).abs().max().item()
+        largest = q.abs().max().item()
+        strict = max(strict, diff / largest if largest else diff)
+        err = diff / max(largest, floor)
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, strict
+
+
+def auction_cases(step_costs) -> list:
+    """Phase 5b's auction cases: ``(name, cost [B, N, M] f32, active
+    [B, M] bool or None, max_rounds)`` on the card."""
+    rng = np.random.default_rng(50)
+    cases = [(f"step head {i} {tuple(cost.shape)}", cost, active, 2000)
+             for i, (cost, active) in enumerate(step_costs)]
+    for shape in ((2, 300, 50), (16, 300, 50), (2, 900, 300)):
+        B, _, M = shape
+        uniform = rng.random(shape, dtype=np.float32)
+        mask = np.zeros((B, M), bool)
+        for b in range(B):
+            mask[b, :rng.integers(5, 10)] = True  # as phase 5's targets
+        for kind, cost, active in (
+                ("uniform", uniform, None),
+                ("ties", np.floor(uniform * 4), None),  # 4 cost values
+                ("constant", np.full(shape, 0.5, np.float32), None),
+                # masked-out slots cost 0 everywhere, as in detection_loss
+                ("masked", np.where(mask[:, None, :], uniform, 0), mask)):
+            cases.append((f"{kind} {shape}", cost, active, 2000))
+    square = rng.random((2, 64, 64), dtype=np.float32)
+    for rounds in (2000, 1, 3, 17):
+        cases.append((f"square (2, 64, 64), max_rounds {rounds}", square,
+                      None, rounds))
+    return [(name, torch.as_tensor(cost, dtype=torch.float32,
+                                   device=DEVICE).contiguous(),
+             None if active is None else torch.as_tensor(active,
+                                                         device=DEVICE),
+             rounds) for name, cost, active, rounds in cases]
+
+
+def check_auction(smi: str, step_costs) -> dict:
+    """Phase 5b a: the auction kernel against ``plain_auction`` in every
+    case, indices and flags equal; each case timed beside the plain loop.
+    Returns the JSON row's numbers, from the step's first head."""
+    worst, budgets_short, row = 0, 0, None
+    for name, cost, active, rounds in auction_cases(step_costs):
+        q, conv, taken = cuda_matcher.auction(cost, active, AUCTION_EPS,
+                                              rounds)
+        want_q, want_conv = plain_auction(cost, active, AUCTION_EPS, rounds)
+        err = (q - want_q).abs().max().item()
+        same = torch.equal(q, want_q) and torch.equal(conv, want_conv)
+        ms = time_ms(lambda: cuda_matcher.auction(  # noqa: B023
+            cost, active, AUCTION_EPS, rounds), 20)
+        plain_ms = time_ms(lambda: plain_auction(  # noqa: B023
+            cost, active, AUCTION_EPS, rounds), 2)
+        taken = taken.tolist()
+        B, N, M = cost.shape
+        where = "shared" if cuda_matcher.cost_in_shared(N, M) else "L2"
+        log(f"auction {name}: {'equal' if same else 'DIFFER'}, converged "
+            f"{sum(conv.tolist())}/{B}, rounds {min(taken)}-{max(taken)}, "
+            f"costs in {where}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms"
+            f" on {smi}")
+        if not same:
+            raise AssertionError(f"auction {name}: the kernel's query_idx or "
+                                 "converged differ from the plain loop's")
+        worst = max(worst, err)
+        budgets_short += "max_rounds" in name and not conv.all().item()
+        if row is None:  # the step's first head: the main path's call
+            nbytes = B * N * M * 4  # each cost read once
+            row = {"ms": ms, "plain_ms": plain_ms,
+                   "bound": dict(zip(("ms", "bound_by"),
+                                     roofline_ms(nbytes, 0.0)))}
+    if not budgets_short:
+        raise AssertionError("no round budget left the auction unconverged: "
+                             "the fallback went untested")
+    log(f"auction: every case equal to the plain loop; the step's call "
+        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, bound "
+        f"{row['bound']['ms']:.3e} ms by {row['bound']['bound_by']}; bound "
+        f"by latency: rounds x one round)")
+    return {**row, "err": float(worst)}
+
+
+def step_time(step, pyramid, targets) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    step(pyramid, targets)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def graph_vs_eager(name, dtype, pyramid, targets, smi, step_costs):
+    """Phase 5b b-e for one dtype: the graphed step against the eager one
+    (one SGD step, then 5 AdamW steps), in f32 one replay under the
+    profiler, and both steps timed in turns.  Appends the step's auction
+    costs to ``step_costs`` (f32).  Returns ``(times, profile)``."""
+    graphed = build_model("auto", True, dtype).train()
+    eager = build_model("auto", True, dtype).train()
+    init = {k: v.clone() for k, v in graphed.state_dict().items()}
+    kw = dict(return_metrics=True, **LOSS_KW)
+
+    # c. one SGD step: the graphed step's warm-up runs at lr 0, which
+    # leaves the parameters as they are, so that the captured step is the
+    # one compared
+    sgd = torch.optim.SGD(graphed.parameters(), lr=0.0)
+    gstep = make_train_step(graphed, sgd, SLICE_SHAPES, **kw)
+    gstep(pyramid, targets)
+    sgd.param_groups[0]["lr"] = GRAPH_LR
+    gloss = gstep(pyramid, targets)[0].item()
+    estep = make_train_step(eager, torch.optim.SGD(
+        eager.parameters(), lr=GRAPH_LR), SLICE_SHAPES, **kw).__wrapped__
+    eloss = estep(pyramid, targets)[0].item()
+    loss_err = abs(gloss - eloss) / abs(eloss)
+    worst, worst_name, strict = parameter_error(graphed, eager)
+    # how far two eager steps part: the graphed model, reset, steps eagerly
+    graphed.load_state_dict(init)
+    make_train_step(graphed, torch.optim.SGD(
+        graphed.parameters(), lr=GRAPH_LR), SLICE_SHAPES, **kw).__wrapped__(
+        pyramid, targets)
+    noise = parameter_error(graphed, eager)
+    log(f"graphed {name} SGD step (lr {GRAPH_LR:g}): loss {gloss:.6f}, eager "
+        f"{eloss:.6f} (rel {loss_err:.2e}, tol {GRAPH_LOSS_TOL[name]:g}); "
+        f"parameters worst {worst:.2e} of the floored scale ({worst_name}; "
+        f"tol {GRAPH_PARAM_TOL[name]:g}; {strict:.2e} of the tensor's "
+        f"largest alone); eager against eager {noise[0]:.2e} ({noise[1]}), "
+        f"{noise[2]:.2e}")
+    if not (loss_err <= GRAPH_LOSS_TOL[name]
+            and worst <= GRAPH_PARAM_TOL[name]):
+        raise AssertionError(f"graphed {name}: the SGD step differs from "
+                             "the eager step")
+    del gstep, estep, sgd
+
+    # b., c. a warm-up and 5 AdamW steps from the same start, graphed and
+    # eager, and eager once more (how far two eager runs part); the first
+    # eager step under the sync debug mode (no host sync allowed), its
+    # auction costs kept for 5b a
+    losses = {}
+    for mode, model in (("graphed", graphed), ("eager", eager),
+                        ("eager again", eager)):
+        model.load_state_dict(init)
+        step = make_train_step(model, adamw(model), SLICE_SHAPES, **kw)
+        if mode != "graphed":
+            step = step.__wrapped__
+        torch.cuda.reset_peak_memory_stats()
+        losses[mode] = []
+        for i in range(1 + TRAIN_STEPS):
+            if mode == "eager" and i == 0:
+                loss = sync_free_step(step, pyramid, targets,
+                                      step_costs if dtype is None else None)
+            else:
+                loss = step(pyramid, targets)[0]
+            losses[mode].append(loss.item())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{mode} {name} AdamW: losses "
+            f"{', '.join(f'{v:.6f}' for v in losses[mode])}; peak allocated "
+            f"{peak:.3f} GiB over the run on {smi}")
+        if mode == "graphed":
+            gstep = step
+        else:
+            estep = step
+
+    def worst_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    held, tol = ((slice(None), GRAPH_ADAMW_TOL) if dtype is None
+                 else (slice(1, 2), GRAPH_LOSS_TOL[name]))
+    rel = worst_rel(losses["graphed"][held], losses["eager"][held])
+    ok = rel <= tol and all(
+        np.isfinite(v).all() and v[-1] < v[0] for v in losses.values())
+    log(f"graphed {name} AdamW against eager: worst loss rel "
+        f"{worst_rel(losses['graphed'], losses['eager']):.2e}, "
+        f"{rel:.2e} on the losses held (tol {tol:g}); eager against eager "
+        f"{worst_rel(losses['eager again'], losses['eager']):.2e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"graphed {name}: AdamW losses not finite, not "
+                             "falling, or not the eager run's")
+
+    profile = None
+    if dtype is None:  # d. one replay under the profiler
+        before = launches()
+        with trace(os.path.join(TRACE_DIR, "train_f32_graphed")) as t:
+            gstep(pyramid, targets)
+        counted = {k: launches()[k] - before[k] for k, _ in TRACED}
+        names = t.kernel_counts()
+        traced = {k: sum(n for kname, n in names.items() if pattern in kname)
+                  for k, pattern in TRACED}
+        want = dict(zip(counted, (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD,
+                                  AUCTIONS_PER_STEP)))
+        busy = t.busy_ms()
+        profile = (t.window_ms, busy, t.idle_share())
+        log(f"profile graphed f32 replay: window {t.window_ms:.3f} ms, busy "
+            f"{busy:.3f} ms, idle {100 * t.idle_share():.1f}%; launches in "
+            f"the trace {traced}, counted {counted} on {smi} "
+            f"({os.path.relpath(t.path, ROOT)})")
+        kernel_ms = t.kernel_ms()
+        for kname, ms in list(kernel_ms.items())[:5]:
+            log(f"  {ms:9.3f} ms  {kname[:110]}")
+        auction_ms = sum(ms for kname, ms in kernel_ms.items()
+                         if "msda_auction_kernel" in kname)
+        log(f"  the auction kernel: {auction_ms:.4f} ms of device time in "
+            f"{AUCTIONS_PER_STEP} launches")
+        if traced != want or counted != want:
+            raise AssertionError(f"a replay launched {traced} (trace), "
+                                 f"{counted} (counters); expected {want}")
+
+    # e. eager and graphed in turns
+    times = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        step = estep if mode == "eager" else gstep
+        times[mode] += [step_time(step, pyramid, targets)
+                        for _ in range(TURN_STEPS)]
+    med = {mode: float(np.median(ts)) for mode, ts in times.items()}
+    log(f"step time {name}, in turns of {TURN_STEPS}: eager median "
+        f"{med['eager']:.3f} ms ({min(times['eager']):.3f}-"
+        f"{max(times['eager']):.3f}), graphed median {med['graphed']:.3f} ms "
+        f"({min(times['graphed']):.3f}-{max(times['graphed']):.3f}), "
+        f"{med['eager'] / med['graphed']:.2f}x on {smi}")
+    del graphed, eager, gstep, estep
+    torch.cuda.empty_cache()
+    return med, profile
+
+
+def sync_free_step(step, pyramid, targets, costs):
+    """One eager step with host syncs as errors; with ``costs`` a list,
+    append the (cost, active) of each auction call to it."""
+    real = train_module.auction_assignment
+
+    def spy(cost, mask, **kw):
+        costs.append((cost.detach().float().contiguous().clone(),
+                      mask.to(torch.bool).contiguous().clone()))
+        return real(cost, mask, **kw)
+
+    if costs is not None:
+        train_module.auction_assignment = spy
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = step(pyramid, targets)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        train_module.auction_assignment = real
+    log("eager step under set_sync_debug_mode('error'): no host sync")
+    return loss
+
+
+def graph_path(smi: str) -> dict:
+    """Phase 5b: the graphed step against the eager one in f32 and bf16,
+    then the auction kernel against its plain version (with the costs of
+    one f32 step).  Returns the auction kernel's JSON numbers, the step
+    times by dtype and mode, and the graphed f32 replay's profile."""
+    pyramid, targets = make_pyramid(30), make_targets(31)
+    step_costs, times, profile = [], {}, None
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        times[name], got = graph_vs_eager(name, dtype, pyramid, targets, smi,
+                                          step_costs)
+        profile = profile or got
+    if len(step_costs) != AUCTIONS_PER_STEP:
+        raise AssertionError(f"a step called the matcher {len(step_costs)} "
+                             f"times, expected {AUCTIONS_PER_STEP}")
+    return {"auction": check_auction(smi, step_costs), "times": times,
+            "profile": profile}
 
 
 def time_ms(fn, iters: int) -> float:
@@ -1161,11 +1504,14 @@ spec = json.loads(sys.argv[2])
 
 
 def counts():
-    mods = {n: sys.modules.get("msda_tpu_torch.ops." + n)
-            for n in ("cuda_fwd", "cuda_bwd", "cuda_stream")}
-    out = {"msda_fwd": getattr(mods["cuda_fwd"], "LAUNCHES", 0),
-           "msda_bwd": getattr(mods["cuda_bwd"], "LAUNCHES", 0)}
-    out.update(getattr(mods["cuda_stream"], "LAUNCHES", {}))
+    mods = {n: sys.modules.get("msda_tpu_torch." + n)
+            for n in ("ops.cuda_fwd", "ops.cuda_bwd", "ops.cuda_stream",
+                      "parallel.cuda_matcher")}
+    out = {"msda_fwd": getattr(mods["ops.cuda_fwd"], "LAUNCHES", 0),
+           "msda_bwd": getattr(mods["ops.cuda_bwd"], "LAUNCHES", 0),
+           "msda_auction": getattr(mods["parallel.cuda_matcher"], "LAUNCHES",
+                                   0)}
+    out.update(getattr(mods["ops.cuda_stream"], "LAUNCHES", {}))
     return out
 
 
@@ -1328,10 +1674,12 @@ def report_trace(what: str, t, unprofiled_ms: float, smi: str) -> None:
         for name in SPANS if name in host))
 
 
-def profile_paths(smi: str, serve_ms: dict, train_ms: dict) -> None:
-    """Phase 8c: one f32 serving request and one f32 training step, each
-    after its warm-up, under ``utils.profile.trace``; ``serve_ms`` and
-    ``train_ms`` are phases 4 and 5's mean times."""
+def profile_paths(smi: str, serve_ms: dict, eager_step_ms: float,
+                  graphed: tuple) -> None:
+    """Phase 8c: one f32 serving request and one eager f32 training step,
+    each after its warm-up, under ``utils.profile.trace``; ``serve_ms`` is
+    phase 4's mean request, ``eager_step_ms`` 5b's eager f32 step and
+    ``graphed`` 5b's graphed replay (window, busy, idle share)."""
     image_sizes = torch.tensor([IMAGE_HW] * BATCH, device=DEVICE)
     pyramid = make_pyramid(REQUEST_SEEDS[0])
     model = build_model("auto", True)
@@ -1348,17 +1696,18 @@ def profile_paths(smi: str, serve_ms: dict, train_ms: dict) -> None:
 
     pyramid, targets = make_pyramid(30), make_targets(31)
     model = build_model("auto", True).train()
-    optimizer = torch.optim.AdamW(model.parameters(), lr=2e-4,
-                                  weight_decay=1e-4)
-    step = make_train_step(model, optimizer, SLICE_SHAPES,
-                           return_metrics=True, **LOSS_KW)
+    step = make_train_step(model, adamw(model), SLICE_SHAPES,
+                           return_metrics=True, **LOSS_KW).__wrapped__
     step(pyramid, targets)
     torch.cuda.synchronize()
     with trace(os.path.join(TRACE_DIR, "train_f32")) as t:
         loss, _ = step(pyramid, targets)
     if not np.isfinite(loss.item()):
         raise AssertionError("profiled training step: loss not finite")
-    report_trace("training f32 step", t, train_ms["f32"], smi)
+    report_trace("training f32 step (eager)", t, eager_step_ms, smi)
+    window, busy, idle = graphed
+    log(f"  the graphed f32 replay (5b): window {window:.3f} ms, busy "
+        f"{busy:.3f} ms, idle {100 * idle:.1f}%")
 
 
 def entry_points(smi: str) -> None:
@@ -1488,41 +1837,30 @@ def mesh_path(smi: str) -> dict:
                                     for k in counts})
         loss_err = abs(results["mesh"][0] - results["unsharded"][0]) / abs(
             results["unsharded"][0])
-        # each tensor's difference over its largest value, at least
-        # GRAD_FLOOR of the model's largest: a tensor that starts at zero
-        # (the MSDA query projections' weights) holds lr x its gradient
-        # after the step, whose last bits K2's atomic order sets
-        floor = GRAD_FLOOR * max(q.abs().max().item()
-                                 for q in plain.parameters())
-        worst, worst_name, strict = -1.0, "", 0.0
-        for (name, p), q in zip(sharded.named_parameters(),
-                                plain.parameters()):
-            diff = (p - q).abs().max().item()
-            largest = q.abs().max().item()
-            strict = max(strict, diff / largest if largest else diff)
-            err = diff / max(largest, floor)
-            if err > worst:
-                worst, worst_name = err, name
+        worst, worst_name, strict = parameter_error(sharded, plain)
         step_counts = results["mesh"][1]
         launched = (step_counts[cuda_fwd.KERNEL],
-                    step_counts[cuda_bwd.KERNEL])
+                    step_counts[cuda_bwd.KERNEL],
+                    step_counts[cuda_matcher.KERNEL])
         log(f"mesh train step (f32, SGD lr {MESH_LR:g}): loss "
             f"{results['mesh'][0]:.6f}, unsharded "
             f"{results['unsharded'][0]:.6f} (rel {loss_err:.2e}); "
             f"parameters worst {worst:.2e} of the tensor's largest, at "
             f"least {GRAD_FLOOR:g} of the model's largest ({worst_name}; "
             f"tol {MESH_TOL:g}; {strict:.2e} of the tensor's largest "
-            f"alone); K1 {launched[0]} K2 "
-            f"{launched[1]} a step on {smi}")
+            f"alone); K1 {launched[0]} K2 {launched[1]} auction "
+            f"{launched[2]} a step on {smi}")
         if not (loss_err <= MESH_TOL and worst <= MESH_TOL and launched == (
-                LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD)):
+                LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD,
+                AUCTIONS_PER_STEP)):
             raise AssertionError("the mesh step differs from the unsharded "
                                  "step")
         counts = {k: served[k] + step_counts[k] for k in served}
         # 4 forwards (a warm-up and 3 requests) and one step
         check_path_launches("mesh", counts, {
             cuda_fwd.KERNEL: 5 * LAUNCHES_PER_FORWARD,
-            cuda_bwd.KERNEL: LAUNCHES_PER_FORWARD})
+            cuda_bwd.KERNEL: LAUNCHES_PER_FORWARD,
+            cuda_matcher.KERNEL: AUCTIONS_PER_STEP})
         del plain, sharded
         return counts
     finally:
@@ -1592,9 +1930,11 @@ def headline_lines(smi: str) -> dict:
     counts = [json.loads(text[len("launches "):])
               for text in run.stderr.splitlines()
               if text.startswith("launches ")]
-    if len(counts) != 1 or set(counts[0]) != set(launches()):
+    # the op's kernels: the headline process runs the op alone
+    op_kernels = set(launches()) - {cuda_matcher.KERNEL}
+    if len(counts) != 1 or set(counts[0]) != op_kernels:
         raise AssertionError(f"headline: launch counts {counts}, expected "
-                             f"one line with the keys {sorted(launches())}")
+                             f"one line with the keys {sorted(op_kernels)}")
     counts = counts[0]
     fwdbwd = sum(mode == "fwdbwd" for _, _, mode, _ in headline.CONFIGS)
     check_path_launches("headline", counts, {
@@ -1612,7 +1952,8 @@ def main() -> None:
     check_model_parity()
     check_gradient_parity()
     served, serve_ms = serve(smi)
-    trained, per_train_step, train_ms = train(smi)
+    trained, per_train_step = train(smi)
+    graphed = graph_path(smi)
     by_path = {"serve": served, "train": trained,
                **large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
@@ -1623,20 +1964,28 @@ def main() -> None:
     benchmark_row(smi)
     opcheck_on_card()
     by_path["export"] = export_path(smi, serve_ms)
-    profile_paths(smi, serve_ms, train_ms)
+    profile_paths(smi, serve_ms, graphed["times"]["f32"]["eager"],
+                  graphed["profile"])
     entry_points(smi)
     dryrun_cpu(smi)
     by_path["mesh"] = mesh_path(smi)
     by_path.update(hf_parity(smi))
     autotune_short(smi)
     by_path["headline"] = headline_lines(smi)
+    auction = graphed["auction"]
+    errs[cuda_matcher.KERNEL] = auction["err"]
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         if name in times:  # K1, K2: the encoder shape, f32
             ms, plain_ms, b = times[name][("encoder", torch.float32)]
+        elif name == cuda_matcher.KERNEL:  # a step's first head's costs
+            ms, plain_ms, b = auction["ms"], auction["plain_ms"], (
+                auction["bound"])
         else:  # the streamed kernels: the 256-base pyramid, f32
             ms, plain_ms, b = stream_times[(name, torch.float32)]
-        paths = {path: counts[name] for path, counts in by_path.items()}
+        # the headline process runs the op alone: no auction count there
+        paths = {path: counts[name] for path, counts in by_path.items()
+                 if name in counts}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1651,9 +2000,13 @@ def main() -> None:
             "bound_ms": b["ms"],
             "bound_by": b["bound_by"],
             # no single PyTorch call computes MSDA (grid_sample per level,
-            # then the weights, then a sum) or the binning
+            # then the weights, then a sum), the binning or an assignment
             "library_ms": None,
         })
+        if name == cuda_matcher.KERNEL:
+            kernels[-1]["limited_by"] = (
+                "latency: rounds x one round's scans, shuffles and "
+                "barriers, a block an image")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

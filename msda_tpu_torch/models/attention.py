@@ -37,6 +37,30 @@ from ..parallel.sharding import (axis, gather_over,
 
 __all__ = ["Dense", "MultiscaleDeformableAttention"]
 
+def device_constant(cache: dict, key, make,
+                    like: torch.Tensor) -> torch.Tensor:
+    """``make(device)``, a tensor made from host data that depends on the
+    hashable ``key`` only (the pyramid's shapes, a dtype), on ``like``'s
+    device.
+
+    It is made once per key and device and kept in ``cache`` (a module's
+    own dict), as ``jax.jit`` keeps a program's constants: on a card, a
+    copy from the host in every call makes the host wait for the card,
+    and cannot be captured in a CUDA graph (``parallel.make_train_step``
+    captures the train step).  The cache holds one entry per key, so it
+    grows with the number of pyramid shapes the module sees.  While
+    ``torch.export`` or ``torch.compile`` traces (``like`` is then not a
+    plain tensor), it is made at each call, and a tensor made on the
+    device there becomes one of the program's constants.
+    """
+    if type(like) is not torch.Tensor or torch.compiler.is_compiling():
+        return make(like.device)
+    slot = (key, like.device)
+    if slot not in cache:
+        with torch.inference_mode(False):  # usable by autograd later
+            cache[slot] = make(like.device)
+    return cache[slot]
+
 
 class Dense(nn.Linear):
     """``nn.Linear`` with flax ``nn.Dense``'s dtype policy.
@@ -141,6 +165,7 @@ class MultiscaleDeformableAttention(nn.Module):
         self.offset_normalizer = offset_normalizer
         self.impl = impl
         self.mesh = mesh
+        self._constants = {}  # the level sizes by shapes (device_constant)
         H, L, P = num_heads, num_levels, num_points
         self.img_input_proj = Dense(emb_dim, hidden_dim, compute_dtype, device)
         self.query_input_proj = Dense(emb_dim, H * L * P * 3, compute_dtype,
@@ -198,8 +223,10 @@ class MultiscaleDeformableAttention(nn.Module):
         shapes = level_shapes(img_shapes)
         last = reference_points.shape[-1]
         if last == 2:
-            hw = torch.tensor(shapes, dtype=offsets.dtype,
-                              device=offsets.device)  # (h, w) order
+            hw = device_constant(  # (h, w) order
+                self._constants, (shapes, offsets.dtype),
+                lambda device: torch.tensor(shapes, dtype=offsets.dtype,
+                                            device=device), offsets)
             normalizer = hw if self.offset_normalizer == "reference" else (
                 hw.flip(-1))
             # [B, N, 1, 1, 1, 2] + [B, N, H, L, P, 2] / [L, 1, 2]

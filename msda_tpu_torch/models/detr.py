@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import level_shapes
 from ..parallel.boxes import box_cxcywh_to_xyxy
 from ..utils.profile import annotate
-from .attention import Dense, MultiscaleDeformableAttention
+from .attention import Dense, MultiscaleDeformableAttention, device_constant
 
 __all__ = [
     "make_encoder_reference_points",
@@ -70,9 +70,7 @@ def make_proposal_anchors(img_shapes, base_scale: float = 0.05,
         xs, ys = _pixel_centers(h, w)
         wh = np.full_like(xs, min(base_scale * (2 ** lvl), 0.9))
         anchors.append(np.stack([xs, ys, wh, wh], axis=-1).reshape(-1, 4))
-    return torch.as_tensor(
-        np.concatenate(anchors, axis=0), dtype=torch.float32
-    ).to(device)
+    return _on_device(np.concatenate(anchors, axis=0), device)
 
 
 def make_encoder_reference_points(img_shapes, device=None) -> torch.Tensor:
@@ -85,9 +83,15 @@ def make_encoder_reference_points(img_shapes, device=None) -> torch.Tensor:
     for h, w in level_shapes(img_shapes):
         xs, ys = _pixel_centers(h, w)
         refs.append(np.stack([xs, ys], axis=-1).reshape(-1, 2))
-    return torch.as_tensor(
-        np.concatenate(refs, axis=0), dtype=torch.float32
-    ).to(device)
+    return _on_device(np.concatenate(refs, axis=0), device)
+
+
+def _on_device(array: np.ndarray, device) -> torch.Tensor:
+    """``array`` as an f32 tensor made on ``device`` from a list: a traced
+    program (``torch.export``) keeps such a tensor as a constant on the
+    device, where it would copy a host tensor to the device at every
+    call."""
+    return torch.tensor(array.tolist(), dtype=torch.float32, device=device)
 
 
 def _inv_sigmoid(p: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -270,6 +274,9 @@ class DeformableDetr(nn.Module):
         self.two_stage = two_stage
         self.remat = remat
         self.compute_dtype = compute_dtype
+        # the encoder reference points and proposal anchors by pyramid shapes
+        # (attention.device_constant)
+        self._constants = {}
         cd = compute_dtype
         layer_args = dict(emb_dim=emb_dim, num_levels=L, num_heads=num_heads,
                           num_points=num_points, ffn_dim=ffn_dim,
@@ -315,7 +322,11 @@ class DeformableDetr(nn.Module):
 
         def run(layer, *args):
             if self.remat and torch.is_grad_enabled():
-                return checkpoint(layer, *args, use_reentrant=False)
+                # the layers draw no random numbers (no dropout), so the
+                # RNG state need not be saved; reading it would stop the
+                # step's capture as a CUDA graph
+                return checkpoint(layer, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
             return layer(*args)
 
         with annotate("encoder"):
@@ -334,14 +345,17 @@ class DeformableDetr(nn.Module):
             feats.append(x)
         feats = torch.cat(feats, dim=1)  # [B, I, D]
 
-        enc_refs = make_encoder_reference_points(shapes, feats.device)
+        enc_refs = device_constant(
+            self._constants, ("encoder_reference_points", shapes),
+            lambda device: make_encoder_reference_points(shapes, device),
+            feats)
         for layer in self.encoder_layers:
             feats = run(layer, feats, shapes, enc_refs)
         return feats
 
     def _decode(self, feats, shapes, run):
         """The proposals (two-stage), the decoder layers and the heads."""
-        B, device = feats.shape[0], feats.device
+        B = feats.shape[0]
         queries = self.query_embedding[None].expand(B, -1, -1)
         if self.compute_dtype is not None:
             queries = queries.to(self.compute_dtype)
@@ -350,7 +364,10 @@ class DeformableDetr(nn.Module):
         if self.two_stage:
             # every encoder pixel emits a proposal; the top num_queries seed
             # the decoder's reference boxes and positional content
-            anchors = make_proposal_anchors(shapes, device=device)[None]
+            anchors = device_constant(
+                self._constants, ("proposal_anchors", shapes),
+                lambda device: make_proposal_anchors(shapes, device=device),
+                feats)[None]
             enc_obj = self.enc_objectness(feats)[..., 0]
             enc_delta = self.enc_box_head(feats)
             enc_boxes = torch.sigmoid(_inv_sigmoid(anchors) + enc_delta)

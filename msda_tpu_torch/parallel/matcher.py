@@ -12,16 +12,24 @@ The JAX solver runs per image under ``jax.vmap``; here the batch is an
 explicit leading axis.  Under ``vmap`` every element steps until the last
 one has converged, and a round taken after an element has converged changes
 nothing for it (no target bids, so no query is won), so the batched loop
-equals the vmapped one.  On the card, testing convergence costs a
-device-to-host sync, so rounds run in chunks (``_CHUNK``) and convergence is
-tested once per chunk; the loop still stops at exactly ``max_rounds``.
+equals the vmapped one.
+
+On a CUDA cost the whole auction is one launch of the hand-written kernel
+``csrc/msda_auction.cu`` (``cuda_matcher.auction``), the counterpart of the
+JAX solver's ``lax.while_loop``: every round of every image runs on the
+card, and nothing is read back to the host.  On a CPU cost it runs the
+plain version, :func:`plain_auction`, a Python loop of rounds that tests
+convergence once per chunk of rounds (``_CHUNK``) and still stops at
+exactly ``max_rounds``.  Both give the same indices.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["auction_assignment", "matching_cost"]
+from . import cuda_matcher
+
+__all__ = ["auction_assignment", "matching_cost", "plain_auction"]
 
 _NEG = -1e30
 _CHUNK = 16  # rounds between convergence tests
@@ -79,8 +87,9 @@ def auction_assignment(cost, target_mask=None, eps=1e-3, max_rounds=2000,
 
     Returns:
         ``query_idx`` ``[M]`` / ``[B, M]`` int64: the query assigned to each
-        target (and ``converged`` if ``return_state``).  Nothing is read back
-        to the host except one convergence flag per chunk of rounds.
+        target (and ``converged`` if ``return_state``).  On a CUDA cost
+        nothing is read back to the host; on a CPU cost the plain loop
+        tests convergence once per chunk of rounds.
     """
     batched = cost.ndim == 3
     if not batched:
@@ -88,11 +97,28 @@ def auction_assignment(cost, target_mask=None, eps=1e-3, max_rounds=2000,
         if target_mask is not None:
             target_mask = target_mask[None]
     cost = cost.detach().to(torch.float32)
+    active = None if target_mask is None else target_mask.to(torch.bool)
+    if cost.is_cuda:
+        out, converged, _ = cuda_matcher.auction(
+            cost.contiguous(),
+            None if active is None else active.contiguous(), eps, max_rounds)
+    else:
+        out, converged = plain_auction(cost, active, eps, max_rounds)
+    if not batched:
+        out, converged = out[0], converged[0]
+    if return_state:
+        return out, converged
+    return out
+
+
+def plain_auction(cost, active, eps, max_rounds):
+    """The auction in plain PyTorch: ``cost`` ``[B, N, M]`` f32, ``active``
+    ``[B, M]`` bool or None.  Returns ``(query_idx [B, M] int64, converged
+    [B] bool)``.  Nothing is read back to the host except one convergence
+    flag per chunk of rounds."""
     B, N, M = cost.shape
     profit = -cost.transpose(1, 2)  # [B, M, N]
-    if target_mask is not None:
-        active = target_mask.to(torch.bool)
-    else:
+    if active is None:
         active = torch.ones((B, M), dtype=torch.bool, device=cost.device)
     eps = torch.tensor(eps, dtype=torch.float32, device=cost.device)
     targets = torch.arange(M, device=cost.device)
@@ -115,12 +141,7 @@ def auction_assignment(cost, target_mask=None, eps=1e-3, max_rounds=2000,
     any_own = owns.any(-1)
     fallback = cost.argmin(1)  # [B, M]
     out = torch.where(any_own, q_idx, fallback)
-    converged = (~active | any_own).all(-1)
-    if not batched:
-        out, converged = out[0], converged[0]
-    if return_state:
-        return out, converged
-    return out
+    return out, (~active | any_own).all(-1)
 
 
 def matching_cost(logits, boxes, labels, tboxes, class_weight=1.0,

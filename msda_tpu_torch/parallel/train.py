@@ -6,7 +6,10 @@ layer's prediction pays a classification loss (softmax CE with background,
 or sigmoid focal) plus 5 * L1 + 2 * GIoU on its matched boxes, with the
 auction matcher or a fixed teacher-forced matching, and the two-stage
 encoder proposals pay their own objectness + box loss.  ``make_train_step``
-builds the eager step: forward, loss, backward, optimizer step.
+builds the step: forward, loss, backward, optimizer step.  On a card
+without a mesh the step is captured once as a CUDA graph and replayed, the
+counterpart of the JAX step's ``jax.jit``: one program a step, with no host
+round trip (the auction matcher is one kernel, ``matcher``).
 
 On a mesh (``make_train_step(mesh=...)``), one step equals one step of the
 unsharded model over the global batch.  Each rank takes its dp block of
@@ -27,7 +30,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import cuda_bwd, cuda_fwd, cuda_stream
 from ..utils.profile import annotate
+from . import cuda_matcher
 from .boxes import generalized_box_iou
 from .matcher import auction_assignment, matching_cost
 from .sharding import axis, sum_over
@@ -370,12 +375,32 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     the host per step unless the caller reads it.  The returned loss is
     detached.
 
+    When the model's parameters lie on a CUDA device and there is no mesh,
+    the step is the counterpart of ``jax.jit``: the first call for a set of
+    input shapes and dtypes is an eager step on a side stream (it creates
+    the optimizer's state and builds the kernels), the second captures one
+    step into a ``torch.cuda.CUDAGraph`` over static copies of the inputs
+    and replays it, and every later call copies the inputs in and replays.
+    Each call is one optimizer update; the loss and metrics are clones of
+    the graph's outputs.  The optimizer must then be capturable: every
+    param group that has a ``capturable`` option must set it
+    (``torch.optim.AdamW(..., capturable=True)``; ``SGD`` has no such
+    option and keeps no state on the host), else this raises
+    ``ValueError``.  Its hyperparameters are read at capture: change them
+    in place as tensors, or build a new step.  The inputs must be tensors
+    (``targets`` a dict of them) and ``img_shapes`` host ints, and the
+    model's parameters and the optimizer's state keep their storage
+    (update them in place).  The kernels' ``LAUNCHES`` counters gain the
+    captured step's launches at each replay.  ``step.__wrapped__`` is the
+    eager step, as ``jax.jit`` exposes the function it wraps.
+
     With a device ``mesh`` (``parallel.make_mesh``; the model built with
     the same one, its parameters placed by :func:`shard_params` or
     :func:`replicate_params`), each rank calls the step with its dp block
     of the batch, and the step equals one step of the unsharded model over
     the whole batch (the module docstring): every rank returns the whole
-    batch's loss, and ``matcher_converged`` holds for the whole batch.
+    batch's loss, and ``matcher_converged`` holds for the whole batch.  The
+    mesh step runs eagerly (its collectives are not captured).
     """
     loss_kw = dict(matcher=matcher, aux_weight=aux_weight,
                    enc_weight=enc_weight, giou_weight=giou_weight,
@@ -412,4 +437,107 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
             return loss, metrics
         return loss
 
-    return step
+    device = _param_device(model)
+    if mesh is not None or device.type != "cuda":
+        def eager_step(pyramid, targets):
+            return step(pyramid, targets)
+
+        eager_step.__wrapped__ = step
+        return eager_step
+    for group in optimizer.param_groups:
+        if not group.get("capturable", True):
+            raise ValueError(
+                "the step on a CUDA device is captured as a CUDA graph: "
+                f"build the optimizer with capturable=True (e.g. "
+                f"torch.optim.AdamW(..., capturable=True)); "
+                f"{type(optimizer).__name__} has capturable=False")
+    return _graphed(step, device, optimizer)
+
+
+def _param_device(model: nn.Module) -> torch.device:
+    """The device of the model's first parameter (the CPU without one)."""
+    return next(model.parameters(), torch.empty(0)).device
+
+
+def launch_counts() -> dict:
+    """Every CUDA kernel wrapper's launch count, by kernel name."""
+    return {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
+            cuda_bwd.KERNEL: cuda_bwd.LAUNCHES,
+            cuda_matcher.KERNEL: cuda_matcher.LAUNCHES,
+            **cuda_stream.LAUNCHES}
+
+
+def _add_launches(counts: dict) -> None:
+    """Add ``counts`` (by kernel name) to the wrappers' counters."""
+    cuda_fwd.LAUNCHES += counts[cuda_fwd.KERNEL]
+    cuda_bwd.LAUNCHES += counts[cuda_bwd.KERNEL]
+    cuda_matcher.LAUNCHES += counts[cuda_matcher.KERNEL]
+    for name in cuda_stream.LAUNCHES:
+        cuda_stream.LAUNCHES[name] += counts[name]
+
+
+def _leaves(pyramid, targets) -> list:
+    """The step's input tensors, in a fixed order."""
+    return [*pyramid, *(targets[k] for k in sorted(targets))]
+
+
+def _graphed(step, device, optimizer):
+    """``step`` captured as a CUDA graph per input signature (the shapes,
+    dtypes and devices of its tensors), as :func:`make_train_step`
+    describes."""
+    graphs = {}  # signature -> None (warmed up) or the captured step
+
+    def graphed_step(pyramid, targets):
+        leaves = _leaves(pyramid, targets)
+        key = (len(pyramid), tuple(sorted(targets)),
+               *((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        with torch.cuda.device(device):
+            if key not in graphs:  # the warm-up, on a side stream
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    out = step(pyramid, targets)
+                torch.cuda.current_stream().wait_stream(side)
+                graphs[key] = None
+                return out
+            if graphs[key] is None:
+                graphs[key] = _capture(step, optimizer, pyramid, targets)
+            graph, static_in, static_out, launched = graphs[key]
+            for static, new in zip(static_in, leaves):
+                static.copy_(new)
+            graph.replay()
+            _add_launches(launched)
+            return _clone(static_out)
+
+    graphed_step.__wrapped__ = step
+    return graphed_step
+
+
+def _capture(step, optimizer, pyramid, targets):
+    """Capture one call of ``step`` on static copies of the inputs.
+    Returns ``(graph, static inputs, static outputs, launches)``: the
+    launches are the captured step's, which a replay issues; the counters
+    are left as they were, since the capture ran nothing."""
+    static_pyramid = [t.clone() for t in pyramid]
+    static_targets = {k: v.clone() for k, v in targets.items()}
+    graph = torch.cuda.CUDAGraph()
+    optimizer.zero_grad(set_to_none=True)
+    before = launch_counts()
+    try:
+        with torch.cuda.graph(graph):
+            static_out = step(static_pyramid, static_targets)
+        after = launch_counts()
+    finally:
+        _add_launches({k: before[k] - v for k, v in launch_counts().items()})
+    launched = {k: after[k] - before[k] for k in after}
+    return (graph, _leaves(static_pyramid, static_targets), static_out,
+            launched)
+
+
+def _clone(out):
+    """A copy of the graph's outputs (a loss, or a loss and its metrics),
+    which the next replay overwrites."""
+    if isinstance(out, tuple):
+        loss, metrics = out
+        return loss.clone(), {k: v.clone() for k, v in metrics.items()}
+    return out.clone()

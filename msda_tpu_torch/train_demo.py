@@ -95,9 +95,12 @@ def main(argv=None) -> list[float]:
     )
     init_parameters(model, torch.Generator().manual_seed(0))
     pyramid, targets = synthetic_batch(rng, args.batch, device)
-    # optax.adamw(3e-4) of the JAX demo, whose weight decay is 1e-4
+    # optax.adamw(3e-4) of the JAX demo, whose weight decay is 1e-4; on a
+    # card the step is captured as a CUDA graph, which needs the optimizer's
+    # state on the card (capturable; the CPU has no such mode)
     optimizer = torch.optim.AdamW(model.parameters(), lr=3e-4,
-                                  weight_decay=1e-4)
+                                  weight_decay=1e-4,
+                                  capturable=device.type == "cuda")
 
     ckpt = TrainCheckpointer(args.ckpt_dir)
     start = 0

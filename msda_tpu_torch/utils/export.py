@@ -113,13 +113,38 @@ def _own_frame_chunk(module: torch.fx.GraphModule) -> torch.fx.GraphModule:
     return module
 
 
+def _without_metadata_checks(module):
+    """Erase ``module``'s ``aten._assert_tensor_metadata`` calls on tensors
+    that the program makes: the checks that ``torch.export`` puts before
+    each dtype cast (``Tensor.to``) that a tensor still has the dtype and
+    device it had when traced.  The checks on the program's inputs stay
+    (with its check of their shapes on entry); the tensors it makes follow
+    from its inputs, so their checks cannot fail, and each costs an
+    operator call a forward (most of the 464 in the full-width bf16
+    detector, a quarter of its nodes).  A module that is not a
+    ``GraphModule`` is returned as it is."""
+    if not isinstance(module, torch.fx.GraphModule):
+        return module
+    checks = [node for node in module.graph.nodes
+              if node.op == "call_function"
+              and node.target is torch.ops.aten._assert_tensor_metadata.default
+              and node.args[0].op != "placeholder"]
+    for node in checks:
+        module.graph.erase_node(node)
+    if checks:
+        module.recompile()
+    return module
+
+
 def load_exported(blob: bytes):
     """Deserialize an :func:`export_fn` artifact into a callable that takes
-    the example arguments' structure, its ``forward`` on a frame-stack
-    chunk of its own (:func:`_own_frame_chunk`).  The calling process must
-    have imported ``msda_tpu_torch`` (this module does), which registers
-    the operators the artifact calls."""
-    return _own_frame_chunk(torch.export.load(io.BytesIO(blob)).module())
+    the example arguments' structure, without its checks of intermediate
+    tensors' metadata (:func:`_without_metadata_checks`), its ``forward``
+    on a frame-stack chunk of its own (:func:`_own_frame_chunk`).  The
+    calling process must have imported ``msda_tpu_torch`` (this module
+    does), which registers the operators the artifact calls."""
+    return _own_frame_chunk(_without_metadata_checks(
+        torch.export.load(io.BytesIO(blob)).module()))
 
 
 def save_exported(blob: bytes, path: str | os.PathLike) -> None:

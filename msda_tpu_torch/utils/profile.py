@@ -68,6 +68,11 @@ class Trace:
             total[e["name"]] += e["dur"] / 1e3
         return dict(total.most_common())
 
+    def kernel_counts(self) -> dict[str, int]:
+        """Device launches by kernel (or copy) name, most first."""
+        return dict(collections.Counter(
+            e["name"] for e in self._device_events()).most_common())
+
     def busy_ms(self) -> float:
         """Milliseconds in which some device work ran: the union of the
         device events' intervals."""

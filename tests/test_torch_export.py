@@ -185,3 +185,27 @@ def test_own_frame_chunk_leaves_large_frames_and_other_modules():
     assert _own_frame_chunk(traced) is traced and traced.code == code
     linear = torch.nn.Linear(2, 2)
     assert _own_frame_chunk(linear) is linear
+
+
+# load_exported drops export's metadata checks of the tensors the program
+# makes (an operator call each, a quarter of the bf16 detector's nodes) and
+# keeps those of its inputs
+def test_loaded_program_checks_its_inputs_only(cpu_device):
+    img, pts, wts = _op_inputs()
+    flat = library.flat_shapes(SHAPES)
+    args = tuple(torch.from_numpy(a) for a in (img, pts, wts))
+    blob = export_fn(lambda i, p, w: library.msda_fwd(
+        i.to(torch.float32), p, w, flat, "border", False).to(torch.bfloat16),
+        *args)
+    plain = torch.export.load(io.BytesIO(blob)).module()
+    served = load_exported(blob)
+
+    def checked(module):
+        return [node.args[0].op for node in module.graph.nodes
+                if node.target is torch.ops.aten._assert_tensor_metadata.default]
+
+    assert "call_function" in checked(plain)
+    assert checked(served) == ["placeholder"]
+    assert torch.equal(served(*args), plain(*args))
+    with pytest.raises(RuntimeError, match="dtype mismatch"):
+        served(args[0].double(), *args[1:])

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1 forward, K2 backward, and the streamed K3'
-forward and K4' + K5' backward with their binning) against their plain
-versions, on the card.
+"""The port's CUDA kernels (K1 forward, K2 backward, the streamed K3'
+forward and K4' + K5' backward with their binning, and the auction
+matcher) against their plain versions, and the train step captured as a
+CUDA graph against the eager step, on the card.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them:
 the kernel has no CPU mode.  The file imports no JAX, so it runs on a
@@ -43,7 +44,9 @@ from msda_tpu_torch.ops import (
     native_multiscale_deformable_attention,
 )
 from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, library, stream
-from msda_tpu_torch.parallel import detection_loss
+from msda_tpu_torch.parallel import (auction_assignment, cuda_matcher,
+                                     detection_loss, make_train_step)
+from msda_tpu_torch.parallel.matcher import plain_auction
 from utils import get_functional_data
 
 pytestmark = pytest.mark.cuda
@@ -534,3 +537,99 @@ def test_stream_wrappers_reject_what_the_kernels_do_not_take(device):
             big, ((128, 128),), pts[:1, :, :1, :1].contiguous(),
             wts[:1, :, :1, :1].contiguous(), plan=[(128, 128)])
     assert cuda_stream.LAUNCHES == before
+
+
+# the auction kernel: (B, N, M, kind, max_rounds); (2, 900, 300) keeps its
+# costs in global memory (past shared memory), the rest in shared memory
+AUCTION_CASES = [
+    (2, 300, 50, "uniform", 2000),
+    (3, 40, 12, "ties", 2000),
+    (2, 16, 16, "constant", 2000),
+    (4, 300, 50, "masked", 2000),
+    (2, 48, 48, "uniform", 17),
+    (2, 900, 300, "ties", 2000),
+]
+
+
+@pytest.mark.parametrize("B,N,M,kind,max_rounds", AUCTION_CASES)
+def test_auction_kernel_matches_plain(device, B, N, M, kind, max_rounds):
+    """``query_idx`` and ``converged`` equal to the plain loop's, exactly
+    (the kernel does the plain version's f32 arithmetic in its order)."""
+    rng = np.random.default_rng(B * N + M)
+    cost = rng.random((B, N, M), dtype=np.float32)
+    active = None
+    if kind == "ties":
+        cost = np.floor(cost * 4)
+    elif kind == "constant":
+        cost = np.full_like(cost, 0.5)
+    elif kind == "masked":
+        active = np.zeros((B, M), bool)
+        active[:, :7] = True
+        cost = np.where(active[:, None, :], cost, 0)
+        active = torch.from_numpy(active).to(device)
+    cost = torch.from_numpy(np.ascontiguousarray(cost, np.float32)).to(device)
+    before = cuda_matcher.LAUNCHES
+    q, conv, rounds = cuda_matcher.auction(cost, active, 1e-3, max_rounds)
+    assert cuda_matcher.LAUNCHES == before + 1
+    want_q, want_conv = plain_auction(cost, active, 1e-3, max_rounds)
+    assert torch.equal(q, want_q) and torch.equal(conv, want_conv)
+    assert (rounds <= max_rounds).all() and (rounds >= 1).all()
+    # through the public entry point: one launch a call, also unbatched
+    got = auction_assignment(cost[0], None if active is None else active[0],
+                             max_rounds=max_rounds)
+    assert torch.equal(got, want_q[0])
+    assert cuda_matcher.LAUNCHES == before + 2
+
+
+def test_auction_wrapper_rejects_what_the_kernel_does_not_take(device):
+    cost = torch.rand(2, 10, 4, device=device)
+    before = cuda_matcher.LAUNCHES
+    with pytest.raises(ValueError, match="f32"):
+        cuda_matcher.auction(cost.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_matcher.auction(cost.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="more targets"):
+        cuda_matcher.auction(torch.rand(1, 3, 4, device=device))
+    with pytest.raises(ValueError, match="active"):
+        cuda_matcher.auction(cost, torch.ones(2, 5, dtype=torch.bool,
+                                              device=device))
+    assert cuda_matcher.LAUNCHES == before
+
+
+def test_graphed_step_matches_the_eager_step(device):
+    """The small model's step captured as a CUDA graph (SGD; the warm-up at
+    lr 0 leaves the parameters as they are): the captured step's loss equal
+    to the eager step's, the parameters after it within 1e-6 of the floored
+    scale (K2's atomics), and each replay counted as K1, K2 and the auction
+    kernel's launches."""
+    pyramid = _small_pyramid(device)
+    rng = np.random.default_rng(2)
+    targets = {
+        "labels": torch.from_numpy(rng.integers(0, 8, (2, 5))).to(device),
+        "boxes": torch.from_numpy(
+            rng.uniform(0.2, 0.6, (2, 5, 4)).astype(np.float32)).to(device),
+        "mask": torch.ones(2, 5, device=device),
+    }
+    kw = dict(matcher="auction", class_loss="focal")
+    graphed, eager = (_small_model(device, "cuda").train() for _ in range(2))
+    sgd = torch.optim.SGD(graphed.parameters(), lr=0.0)
+    step = make_train_step(graphed, sgd, LEVELS, **kw)
+    step(pyramid, targets)  # the warm-up
+    sgd.param_groups[0]["lr"] = 1e-3
+    before = (cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES, cuda_matcher.LAUNCHES)
+    loss = step(pyramid, targets)  # the capture and its replay
+    step_eager = make_train_step(eager, torch.optim.SGD(
+        eager.parameters(), lr=1e-3), LEVELS, **kw).__wrapped__
+    want = step_eager(pyramid, targets)
+    # 2 + 2 layers, 2 heads with box refinement (an auction each), in the
+    # replay and in the eager step
+    assert (cuda_fwd.LAUNCHES - before[0], cuda_bwd.LAUNCHES - before[1],
+            cuda_matcher.LAUNCHES - before[2]) == (4 + 4, 4 + 4, 2 + 2)
+    assert loss.item() == pytest.approx(want.item(), rel=1e-5)
+    floor = 1e-3 * max(q.abs().max().item() for q in eager.parameters())
+    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
+        scale = max(q.abs().max().item(), floor)
+        assert (p - q).abs().max().item() <= 1e-6 * scale, name
+    with pytest.raises(ValueError, match="capturable"):
+        make_train_step(eager, torch.optim.AdamW(eager.parameters()),
+                        LEVELS, **kw)

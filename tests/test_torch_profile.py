@@ -127,6 +127,24 @@ def test_trace_reading_on_a_synthetic_trace(tmp_path):
     assert t.span_ms(device=True) == {"forward": 1.4}
 
 
+def test_trace_counts_device_launches_by_name(tmp_path):
+    """Launches count each device event once by name, most first; host
+    events and instants are not launches."""
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 0, "dur": 10},
+        {"ph": "X", "cat": "kernel", "name": "k2", "ts": 20, "dur": 10},
+        {"ph": "X", "cat": "kernel", "name": "k2", "ts": 40, "dur": 10},
+        {"ph": "X", "cat": "gpu_memset", "name": "set", "ts": 60, "dur": 1},
+        {"ph": "X", "cat": "cpu_op", "name": "k1", "ts": 0, "dur": 90},
+        {"ph": "i", "cat": "kernel", "name": "k1", "ts": 0},
+    ]
+    t = profile.Trace(str(tmp_path))
+    with open(t.path, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    assert t.kernel_counts() == {"k2": 2, "k1": 1, "set": 1}
+    assert list(t.kernel_counts())[0] == "k2"
+
+
 def test_idle_share_needs_a_finished_capture(tmp_path):
     with pytest.raises(ValueError, match="not ended"):
         profile.Trace(str(tmp_path)).idle_share()
