@@ -293,11 +293,4 @@ int msda_auction_launch(const void* cost, const void* active, int B, int N,
   return (int)cudaGetLastError();
 }
 
-// cost_placement on the current device: 1 shared memory, 0 global memory,
-// -1 the kernel cannot run.
-int msda_auction_cost_in_shared(int N, int M) {
-  int limit;
-  return cost_placement(N, M, &limit);
-}
-
 }  // extern "C"

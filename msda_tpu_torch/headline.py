@@ -75,11 +75,10 @@ def measure(dtype, mode: str, impl: str, device, iters: int, repeats: int,
 
 
 def _launches() -> dict:
-    """Every kernel's launch count in this process, read from its wrapper's
-    counter (importing a wrapper builds nothing)."""
-    from .ops import cuda_bwd, cuda_fwd, cuda_stream
-    return {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
-            cuda_bwd.KERNEL: cuda_bwd.LAUNCHES, **cuda_stream.LAUNCHES}
+    """Every kernel of the op's launch count in this process (importing a
+    wrapper builds nothing)."""
+    from .ops import cuda_bwd, cuda_fwd, cuda_stream, launches
+    return launches.counts(cuda_fwd, cuda_bwd, cuda_stream)
 
 
 def _line(metric: str, ms, anchor: float, error: str | None = None) -> dict:

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, launches
 from .cuda_fwd import DTYPE_CODES, check_inputs
 
 __all__ = ["LAUNCHES", "msda_bwd", "load"]
@@ -30,6 +30,7 @@ KERNEL = "msda_bwd"
 
 # Number of kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
+launches.register(__name__)
 
 
 def load() -> ctypes.CDLL:

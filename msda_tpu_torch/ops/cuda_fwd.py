@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, launches
 from .reference import level_shapes
 
 __all__ = ["LAUNCHES", "msda_fwd", "load", "check_inputs"]
@@ -29,6 +29,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # Number of kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
+launches.register(__name__)
 
 
 def load() -> ctypes.CDLL:

@@ -42,7 +42,7 @@ import ctypes
 
 import torch
 
-from . import _build, stream
+from . import _build, launches, stream
 from .cuda_fwd import DTYPE_CODES, check_inputs
 from .reference import level_shapes
 
@@ -55,6 +55,7 @@ _INT32_MAX = 2**31 - 1
 
 # Launches per kernel since import (or since a caller reset them).
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+launches.register(__name__)
 
 
 def load() -> ctypes.CDLL:

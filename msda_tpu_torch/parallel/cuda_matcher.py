@@ -21,10 +21,9 @@ import ctypes
 
 import torch
 
-from ..ops import _build
+from ..ops import _build, launches
 
-__all__ = ["KERNEL", "LAUNCHES", "MAX_SLOTS", "auction", "cost_in_shared",
-           "load"]
+__all__ = ["KERNEL", "LAUNCHES", "MAX_SLOTS", "auction", "load"]
 
 KERNEL = "msda_auction"
 # queries + targets at most: their per-slot state (16 bytes each) must fit
@@ -34,6 +33,7 @@ _INT32_MAX = 2**31 - 1
 
 # Number of kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
+launches.register(__name__)
 
 
 def load() -> ctypes.CDLL:
@@ -43,19 +43,7 @@ def load() -> ctypes.CDLL:
     lib.msda_auction_launch.argtypes = [vp, vp, ci, ci, ci, ctypes.c_float,
                                         ci, vp, vp, vp, vp]
     lib.msda_auction_launch.restype = ci
-    lib.msda_auction_cost_in_shared.argtypes = [ci, ci]
-    lib.msda_auction_cost_in_shared.restype = ci
     return lib
-
-
-def cost_in_shared(num_queries: int, num_targets: int) -> bool:
-    """Whether the kernel keeps an image's costs in shared memory on the
-    current device (else it reads them through the L2)."""
-    got = load().msda_auction_cost_in_shared(num_queries, num_targets)
-    if got < 0:
-        raise ValueError(f"{num_queries} queries and {num_targets} targets "
-                         "do not fit the kernel's shared memory")
-    return bool(got)
 
 
 def auction(cost: torch.Tensor, active: torch.Tensor | None = None,

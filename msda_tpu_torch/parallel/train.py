@@ -25,14 +25,15 @@ rank the same parameters.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import cuda_bwd, cuda_fwd, cuda_stream
+from ..ops import launches
 from ..utils.profile import annotate
-from . import cuda_matcher
 from .boxes import generalized_box_iou
 from .matcher import auction_assignment, matching_cost
 from .sharding import axis, sum_over
@@ -383,16 +384,21 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     and replays it, and every later call copies the inputs in and replays.
     Each call is one optimizer update; the loss and metrics are clones of
     the graph's outputs.  The optimizer must then be capturable: every
-    param group that has a ``capturable`` option must set it
-    (``torch.optim.AdamW(..., capturable=True)``; ``SGD`` has no such
-    option and keeps no state on the host), else this raises
-    ``ValueError``.  Its hyperparameters are read at capture: change them
-    in place as tensors, or build a new step.  The inputs must be tensors
+    param group sets ``capturable=True`` (``torch.optim.AdamW(...,
+    capturable=True)``), or it is ``torch.optim.SGD``, whose state lies on
+    the device; any other raises ``ValueError``.  A capture bakes in the
+    param groups' options that are not tensors (a scheduler's float ``lr``,
+    say) and the tensors it reads: a call that finds an option changed, a
+    group's parameters, or a state tensor replaced (``load_state_dict``)
+    captures the step again (as long as a capture takes), so that the
+    change takes effect as in the eager step.  A tensor changed in place is
+    read by the graph and needs no new capture.  The inputs must be tensors
     (``targets`` a dict of them) and ``img_shapes`` host ints, and the
-    model's parameters and the optimizer's state keep their storage
-    (update them in place).  The kernels' ``LAUNCHES`` counters gain the
-    captured step's launches at each replay.  ``step.__wrapped__`` is the
-    eager step, as ``jax.jit`` exposes the function it wraps.
+    model's parameters keep their storage (update them in place, as
+    ``load_state_dict`` does).  The kernels' launch counters
+    (``ops.launches``) gain the captured step's launches at each replay.
+    ``step.__wrapped__`` is the eager step, as ``jax.jit`` exposes the
+    function it wraps.
 
     With a device ``mesh`` (``parallel.make_mesh``; the model built with
     the same one, its parameters placed by :func:`shard_params` or
@@ -444,13 +450,7 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
 
         eager_step.__wrapped__ = step
         return eager_step
-    for group in optimizer.param_groups:
-        if not group.get("capturable", True):
-            raise ValueError(
-                "the step on a CUDA device is captured as a CUDA graph: "
-                f"build the optimizer with capturable=True (e.g. "
-                f"torch.optim.AdamW(..., capturable=True)); "
-                f"{type(optimizer).__name__} has capturable=False")
+    _check_capturable(optimizer)
     return _graphed(step, device, optimizer)
 
 
@@ -459,21 +459,43 @@ def _param_device(model: nn.Module) -> torch.device:
     return next(model.parameters(), torch.empty(0)).device
 
 
-def launch_counts() -> dict:
-    """Every CUDA kernel wrapper's launch count, by kernel name."""
-    return {cuda_fwd.KERNEL: cuda_fwd.LAUNCHES,
-            cuda_bwd.KERNEL: cuda_bwd.LAUNCHES,
-            cuda_matcher.KERNEL: cuda_matcher.LAUNCHES,
-            **cuda_stream.LAUNCHES}
+def _check_capturable(optimizer) -> None:
+    """Raise ``ValueError`` unless ``optimizer``'s update can be captured:
+    every param group has ``capturable=True``, or it is ``SGD`` (its
+    momentum buffers lie on the device; it keeps nothing on the host)."""
+    if type(optimizer) is torch.optim.SGD:
+        return
+    for group in optimizer.param_groups:
+        if group.get("capturable") is not True:
+            raise ValueError(
+                "the step on a CUDA device is captured as a CUDA graph: "
+                "build the optimizer with capturable=True (e.g. "
+                "torch.optim.AdamW(..., capturable=True)) or use "
+                f"torch.optim.SGD; {type(optimizer).__name__} has "
+                f"capturable={group.get('capturable', 'unset')}")
 
 
-def _add_launches(counts: dict) -> None:
-    """Add ``counts`` (by kernel name) to the wrappers' counters."""
-    cuda_fwd.LAUNCHES += counts[cuda_fwd.KERNEL]
-    cuda_bwd.LAUNCHES += counts[cuda_bwd.KERNEL]
-    cuda_matcher.LAUNCHES += counts[cuda_matcher.KERNEL]
-    for name in cuda_stream.LAUNCHES:
-        cuda_stream.LAUNCHES[name] += counts[name]
+def _options(optimizer) -> list:
+    """What a capture reads of ``optimizer``: a copy of each param group,
+    its parameter list included, and of each of its parameters' state."""
+    return [(dict(group, params=list(group["params"])),
+             [dict(optimizer.state.get(p, {})) for p in group["params"]])
+            for group in optimizer.param_groups]
+
+
+def _same(a, b) -> bool:
+    """Whether two :func:`_options` (or parts of them) are the same: a
+    tensor by identity (the graph reads it where it lies), anything else by
+    type and value."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a is b
+    if isinstance(a, dict):
+        return (type(b) is dict and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(map(_same, a, b)))
+    return type(a) is type(b) and a == b
 
 
 def _leaves(pyramid, targets) -> list:
@@ -485,7 +507,8 @@ def _graphed(step, device, optimizer):
     """``step`` captured as a CUDA graph per input signature (the shapes,
     dtypes and devices of its tensors), as :func:`make_train_step`
     describes."""
-    graphs = {}  # signature -> None (warmed up) or the captured step
+    # signature -> None (warmed up) or the captured step (_capture)
+    graphs = {}
 
     def graphed_step(pyramid, targets):
         leaves = _leaves(pyramid, targets)
@@ -500,38 +523,51 @@ def _graphed(step, device, optimizer):
                 torch.cuda.current_stream().wait_stream(side)
                 graphs[key] = None
                 return out
-            if graphs[key] is None:
+            if (graphs[key] is None
+                    or not _same(graphs[key].options, _options(optimizer))):
+                graphs[key] = None  # the old graph's memory goes first
                 graphs[key] = _capture(step, optimizer, pyramid, targets)
-            graph, static_in, static_out, launched = graphs[key]
-            for static, new in zip(static_in, leaves):
+            captured = graphs[key]
+            for static, new in zip(captured.inputs, leaves):
                 static.copy_(new)
-            graph.replay()
-            _add_launches(launched)
-            return _clone(static_out)
+            captured.graph.replay()
+            launches.add(captured.launched)
+            return _clone(captured.outputs)
 
     graphed_step.__wrapped__ = step
     return graphed_step
 
 
-def _capture(step, optimizer, pyramid, targets):
-    """Capture one call of ``step`` on static copies of the inputs.
-    Returns ``(graph, static inputs, static outputs, launches)``: the
-    launches are the captured step's, which a replay issues; the counters
-    are left as they were, since the capture ran nothing."""
+class _Captured(NamedTuple):
+    """A captured step: the graph, its static inputs (in :func:`_leaves`'
+    order) and outputs, the launches that a replay issues (by kernel name),
+    and the optimizer's options that the capture read (:func:`_options`)."""
+    graph: torch.cuda.CUDAGraph
+    inputs: list
+    outputs: object
+    launched: dict
+    options: list
+
+
+def _capture(step, optimizer, pyramid, targets) -> _Captured:
+    """Capture one call of ``step`` on static copies of the inputs.  The
+    counters are left as they were, since the capture ran nothing."""
     static_pyramid = [t.clone() for t in pyramid]
     static_targets = {k: v.clone() for k, v in targets.items()}
     graph = torch.cuda.CUDAGraph()
+    options = _options(optimizer)
     optimizer.zero_grad(set_to_none=True)
-    before = launch_counts()
+    before = launches.counts()
     try:
         with torch.cuda.graph(graph):
             static_out = step(static_pyramid, static_targets)
-        after = launch_counts()
+        after = launches.counts()
     finally:
-        _add_launches({k: before[k] - v for k, v in launch_counts().items()})
-    launched = {k: after[k] - before[k] for k in after}
-    return (graph, _leaves(static_pyramid, static_targets), static_out,
-            launched)
+        launches.add({k: before.get(k, 0) - n
+                      for k, n in launches.counts().items()})
+    launched = {k: n - before.get(k, 0) for k, n in after.items()}
+    return _Captured(graph, _leaves(static_pyramid, static_targets),
+                     static_out, launched, options)
 
 
 def _clone(out):

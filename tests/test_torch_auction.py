@@ -14,10 +14,15 @@ arrays).
 ``make_train_step`` captures the step as a CUDA graph only for parameters
 on a card; here it stays eager, and its capturable-optimizer check is
 reached with the parameters' device and ``torch.cuda.is_available``
-stubbed (a CPU build holds no CUDA tensor).
+stubbed (a CPU build holds no CUDA tensor).  With the streams and the graph
+stubbed too, the graphed step's bookkeeping runs here: when it captures,
+when it captures again (an optimizer option changed) and when it replays.
 """
 
 from __future__ import annotations
+
+import contextlib
+import copy
 
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from msda_tpu.parallel import matcher as jax_matcher  # noqa: E402
 from msda_tpu_torch.models import DeformableDetr, init_parameters  # noqa: E402
+from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, launches  # noqa: E402
 from msda_tpu_torch.parallel import (  # noqa: E402
     auction_assignment,
     cuda_matcher,
@@ -192,6 +198,26 @@ def test_graphed_step_needs_a_capturable_optimizer(on_a_card):
                         SHAPES, **LOSS_KW)
 
 
+@pytest.mark.parametrize("optimizer", ["adagrad", "adamw_one_group",
+                                       "sgd_subclass"])
+def test_graphed_step_refuses_host_state(on_a_card, optimizer):
+    """Only groups that set capturable=True, or SGD itself, are taken:
+    Adagrad has no such option (its step count lies on the host), a second
+    group without it is refused as the first would be, and a subclass of
+    SGD may keep state anywhere."""
+    model = _model()
+    params = list(model.parameters())
+    if optimizer == "adagrad":
+        opt = torch.optim.Adagrad(params)
+    elif optimizer == "adamw_one_group":
+        opt = torch.optim.AdamW([{"params": params[:2], "capturable": True},
+                                 {"params": params[2:]}])
+    else:
+        opt = type("MySGD", (torch.optim.SGD,), {})(params, lr=1e-2)
+    with pytest.raises(ValueError, match="capturable=True"):
+        make_train_step(model, opt, SHAPES, **LOSS_KW)
+
+
 @pytest.mark.parametrize("optimizer", ["adamw_capturable", "sgd"])
 def test_graphed_step_takes_capturable_optimizers(on_a_card, optimizer):
     """AdamW(capturable=True), and SGD, which has no such option and keeps
@@ -206,13 +232,11 @@ def test_graphed_step_takes_capturable_optimizers(on_a_card, optimizer):
 
 def test_launch_counts_take_the_replays_counts(monkeypatch):
     """A replay adds the captured step's launches to every wrapper's
-    counter."""
-    counts = train_module.launch_counts()
+    counter, through the one registry (``ops.launches``)."""
+    counts = launches.counts()
     assert set(counts) == {"msda_fwd", "msda_bwd", "msda_auction",
                            "msda_stream_bin", "msda_stream_fwd",
                            "msda_stream_bwd"}
-    from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream
-
     monkeypatch.setattr(cuda_fwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_bwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_matcher, "LAUNCHES", 0)
@@ -221,5 +245,101 @@ def test_launch_counts_take_the_replays_counts(monkeypatch):
     step = dict.fromkeys(counts, 0)
     step.update(msda_fwd=12, msda_bwd=12, msda_auction=6)
     for _ in range(3):
-        train_module._add_launches(step)
-    assert train_module.launch_counts() == {k: 3 * v for k, v in step.items()}
+        launches.add(step)
+    assert launches.counts() == {k: 3 * v for k, v in step.items()}
+    assert (cuda_fwd.LAUNCHES, cuda_bwd.LAUNCHES, cuda_matcher.LAUNCHES) == (
+        36, 36, 18)
+    launches.reset()
+    assert set(launches.counts().values()) == {0}
+
+
+class _FakeGraph:
+    """A CUDA graph that records its capture and counts its replays."""
+
+    replays = 0
+
+    def replay(self):
+        _FakeGraph.replays += 1
+
+
+@pytest.fixture
+def graphs_stubbed(on_a_card, monkeypatch):
+    """The streams and the graph of ``_graphed`` stubbed: the warm-up and
+    the capture run the step on the CPU, a replay runs nothing.  Yields
+    the list of captures."""
+    captured = []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def graph(g):
+        captured.append(g)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(_FakeGraph, "replays", 0)
+    yield captured
+
+
+def test_graphed_step_captures_again_when_an_option_changes(graphs_stubbed):
+    """Call 1 warms up, call 2 captures and replays, later calls replay; a
+    float lr changed by hand or by a scheduler, a new option (the
+    scheduler's ``initial_lr``), the optimizer's state loaded anew or
+    another parameter list makes the next call capture again, since a
+    capture bakes them in."""
+    captured = graphs_stubbed
+    model = _model()
+    sgd = torch.optim.SGD(model.parameters(), lr=1e-2, momentum=0.9)
+    step = make_train_step(model, sgd, SHAPES, **LOSS_KW)
+    pyramid, targets = _batch()
+
+    def call():
+        loss, metrics = step(pyramid, targets)
+        assert torch.isfinite(loss)
+        return len(captured), _FakeGraph.replays
+
+    assert call() == (0, 0)  # the warm-up
+    assert call() == (1, 1)  # the capture and its replay
+    assert call() == (1, 2)
+    sgd.param_groups[0]["lr"] = 5e-3
+    assert call() == (2, 3)
+    assert call() == (2, 4)
+    schedule = torch.optim.lr_scheduler.StepLR(sgd, step_size=1, gamma=0.5)
+    assert call() == (3, 5)  # the group gained initial_lr
+    schedule.step()
+    assert sgd.param_groups[0]["lr"] == pytest.approx(2.5e-3)
+    assert call() == (4, 6)
+    sgd.load_state_dict(copy.deepcopy(sgd.state_dict()))  # new buffers
+    assert call() == (5, 7)
+    sgd.param_groups[0]["params"] = sgd.param_groups[0]["params"][1:]
+    assert call() == (6, 8)
+    assert call() == (6, 9)
+
+
+def test_options_compare_tensors_by_identity():
+    """A tensor option changed in place is what the graph reads (no new
+    capture); a new tensor, or a changed value of any other type, is a
+    change."""
+    model = _model()
+    opt = torch.optim.SGD(model.parameters(), lr=torch.tensor(1e-2))
+    captured = train_module._options(opt)
+    assert train_module._same(captured, train_module._options(opt))
+    opt.param_groups[0]["lr"].fill_(5e-3)
+    assert train_module._same(captured, train_module._options(opt))
+    opt.param_groups[0]["lr"] = torch.tensor(5e-3)
+    assert not train_module._same(captured, train_module._options(opt))
+    captured = train_module._options(opt)
+    opt.param_groups[0]["momentum"] = 0.9
+    assert not train_module._same(captured, train_module._options(opt))
+    captured = train_module._options(opt)
+    opt.param_groups[0]["momentum"] = 1  # an int is not the float 0.9
+    assert not train_module._same(captured, train_module._options(opt))

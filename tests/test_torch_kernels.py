@@ -596,20 +596,38 @@ def test_auction_wrapper_rejects_what_the_kernel_does_not_take(device):
     assert cuda_matcher.LAUNCHES == before
 
 
-def test_graphed_step_matches_the_eager_step(device):
-    """The small model's step captured as a CUDA graph (SGD; the warm-up at
-    lr 0 leaves the parameters as they are): the captured step's loss equal
-    to the eager step's, the parameters after it within 1e-6 of the floored
-    scale (K2's atomics), and each replay counted as K1, K2 and the auction
-    kernel's launches."""
-    pyramid = _small_pyramid(device)
-    rng = np.random.default_rng(2)
-    targets = {
+def _small_targets(device, seed):
+    rng = np.random.default_rng(seed)
+    return {
         "labels": torch.from_numpy(rng.integers(0, 8, (2, 5))).to(device),
         "boxes": torch.from_numpy(
             rng.uniform(0.2, 0.6, (2, 5, 4)).astype(np.float32)).to(device),
         "mask": torch.ones(2, 5, device=device),
     }
+
+
+def _assert_same_step(graphed, eager, loss, want):
+    """The graphed step's loss within 1e-5 of the eager step's, and the
+    parameters after it within 1e-6 of the floored scale (K2's atomics)."""
+    assert loss.item() == pytest.approx(want.item(), rel=1e-5)
+    floor = 1e-3 * max(q.abs().max().item() for q in eager.parameters())
+    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
+        scale = max(q.abs().max().item(), floor)
+        assert (p - q).abs().max().item() <= 1e-6 * scale, name
+
+
+def test_graphed_step_matches_the_eager_step(device):
+    """The small model's step captured as a CUDA graph (SGD; the warm-up at
+    lr 0 leaves the parameters as they are): the captured step's loss equal
+    to the eager step's, the parameters after it within 1e-6 of the floored
+    scale (K2's atomics), and each replay counted as K1, K2 and the auction
+    kernel's launches.  A third call, on a second batch of the same shapes,
+    replays on the inputs copied in: held to the eager step on that batch
+    from the same parameters, at the same bars."""
+    pyramid, targets = _small_pyramid(device), _small_targets(device, 2)
+    rng = np.random.default_rng(1)
+    batch_b = ([torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+        np.float32)).to(device) for t in pyramid], _small_targets(device, 3))
     kw = dict(matcher="auction", class_loss="focal")
     graphed, eager = (_small_model(device, "cuda").train() for _ in range(2))
     sgd = torch.optim.SGD(graphed.parameters(), lr=0.0)
@@ -625,11 +643,36 @@ def test_graphed_step_matches_the_eager_step(device):
     # replay and in the eager step
     assert (cuda_fwd.LAUNCHES - before[0], cuda_bwd.LAUNCHES - before[1],
             cuda_matcher.LAUNCHES - before[2]) == (4 + 4, 4 + 4, 2 + 2)
-    assert loss.item() == pytest.approx(want.item(), rel=1e-5)
-    floor = 1e-3 * max(q.abs().max().item() for q in eager.parameters())
-    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
-        scale = max(q.abs().max().item(), floor)
-        assert (p - q).abs().max().item() <= 1e-6 * scale, name
+    _assert_same_step(graphed, eager, loss, want)
+    # the replay on batch b, against the eager step on it from the graphed
+    # model's parameters (a replay on batch a's inputs would update them
+    # otherwise)
+    eager.load_state_dict(graphed.state_dict())
+    loss = step(*batch_b)
+    want = step_eager(*batch_b)
+    _assert_same_step(graphed, eager, loss, want)
     with pytest.raises(ValueError, match="capturable"):
         make_train_step(eager, torch.optim.AdamW(eager.parameters()),
                         LEVELS, **kw)
+
+
+def test_graphed_step_takes_an_lr_change(device):
+    """A scheduler's change of a float lr after the capture takes effect:
+    the next call captures the step again, and its update is the eager
+    step's at the new lr from the same parameters."""
+    pyramid, targets = _small_pyramid(device), _small_targets(device, 2)
+    kw = dict(matcher="auction", class_loss="focal")
+    graphed, eager = (_small_model(device, "cuda").train() for _ in range(2))
+    sgd = torch.optim.SGD(graphed.parameters(), lr=1e-3)
+    step = make_train_step(graphed, sgd, LEVELS, **kw)
+    for _ in range(3):  # the warm-up, the capture and its replay, a replay
+        step(pyramid, targets)
+    schedule = torch.optim.lr_scheduler.StepLR(sgd, step_size=1, gamma=5.0)
+    schedule.step()
+    assert sgd.param_groups[0]["lr"] == pytest.approx(5e-3)
+    eager.load_state_dict(graphed.state_dict())
+    loss = step(pyramid, targets)
+    want = make_train_step(eager, torch.optim.SGD(
+        eager.parameters(), lr=5e-3), LEVELS, **kw).__wrapped__(
+        pyramid, targets)
+    _assert_same_step(graphed, eager, loss, want)
