@@ -23,6 +23,9 @@ after of that repair, in one process tree:
     ``msda_tpu_torch.utils.export`` only) twice: ``raw``, the artifact
     loaded as ``torch.export.load(...).module()`` gives it (the serving
     process before the repair), and ``padded``, through ``load_exported``.
+    Each is served eager (the program node by node, where the frame
+    chunks cost) and graphed (``utils.graphs.graphed``, which
+    ``load_exported`` returns), in turns.
 
 Rows are printed with the card's ``nvidia-smi`` name and power limit and
 written to ``--out`` (default ``build/export_bisect.log``).  Needs a CUDA
@@ -49,7 +52,8 @@ from msda_tpu_torch.utils import export_fn, save_exported  # noqa: E402
 OUT_DIR = os.path.join(ROOT, "build", "export_bisect")
 # phase 8b's loader line, and the loader before the repair
 _LOAD = """    serve = load_exported_file(f"{spec['dir']}/{name}.pt2")"""
-_RAW_LOAD = """    serve = torch.export.load(f"{spec['dir']}/{name}.pt2").module()"""
+_RAW_LOAD = """    from msda_tpu_torch.utils.graphs import graphed
+    serve = graphed(torch.export.load(f"{spec['dir']}/{name}.pt2").module())"""
 
 
 def live_ms(fn, pyramids) -> list:
@@ -120,8 +124,10 @@ def main(argv=None) -> None:
                     f"{run.returncode})\n{run.stderr[-3000:]}")
                 continue
             served = json.loads(run.stdout.strip().splitlines()[-1])
-            log(f"fresh process, {form} load: bf16 ms "
-                f"{[round(t, 3) for t in served['bf16']['ms']]} on {smi}")
+            log(f"fresh process, {form} load: bf16 ms eager "
+                f"{[round(t, 3) for t in served['bf16']['eager_ms']]}, "
+                f"graphed {[round(t, 3) for t in served['bf16']['ms']]} "
+                f"on {smi}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -11,7 +11,9 @@ It separates the artifact from the process that serves it:
   * ``in-process``: ``chip_smoke.py``'s two-stage model (f32, then bf16)
     is exported with ``utils.export.export_fn`` and the bytes loaded back
     with ``load_exported`` in the same process; the live model and the
-    loaded program serve the same request in turns (live, exported,
+    loaded program (its ``__wrapped__``, run node by node, where the host
+    time lies; its graphed replay is phase 8b's) serve the same request in
+    turns (live, exported,
     exported, live), 5 requests a turn, timed with CUDA events, with the
     host time of each call beside it;
   * ``fresh process``: the saved artifacts (``build/export_serve/``) are
@@ -70,7 +72,8 @@ pyramid = [torch.from_numpy(rng.standard_normal(
     for (h, w), c in zip(spec["shapes"], spec["channels"])]
 rows = {}
 for name in spec["order"]:
-    serve = load_exported_file(f"{spec['dir']}/{name}.pt2")
+    # the program node by node (a graphed request replays it; phase 8b)
+    serve = load_exported_file(f"{spec['dir']}/{name}.pt2").__wrapped__
     with torch.inference_mode():
         serve(*pyramid)
         torch.cuda.synchronize()
@@ -238,7 +241,7 @@ def main(argv=None) -> None:
             model(list(pyr), cs.SLICE_SHAPES), top_k=100, scoring="sigmoid",
             image_sizes=image_sizes), *pyramid)
         save_exported(blob, os.path.join(OUT_DIR, f"{name}.pt2"))
-        program = load_exported(blob)
+        program = load_exported(blob).__wrapped__
         with torch.inference_mode():
             live()
             program(*pyramid)

@@ -486,7 +486,12 @@ def postprocess(outputs, top_k: int = 100, scoring: str = "softmax",
     pairs, global top-k, boxes gathered per selected query.  With
     ``image_sizes`` (``[B, 2]`` (height, width) per image), boxes are
     absolute ``(x0, y0, x1, y1)`` pixel coordinates; otherwise normalized
-    ``(cx, cy, w, h)``.
+    ``(cx, cy, w, h)``.  ``image_sizes`` may be a host list, which is
+    copied to the detections' device at each call (the host waits for that
+    copy), or a tensor: one already on that device is used where it lies,
+    with no copy from the host.  A serving function captured as a CUDA
+    graph (``utils.graphs.graphed``) takes it as a device tensor, since a
+    copy from the host cannot be captured.
 
     ``scoring``: ``"softmax"`` (default) takes a softmax over classes and
     drops the last class as background; ``"sigmoid"`` takes a per-class

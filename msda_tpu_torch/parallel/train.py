@@ -25,14 +25,12 @@ rank the same parameters.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import launches
+from ..utils.graphs import graphed
 from ..utils.profile import annotate
 from .boxes import generalized_box_iou
 from .matcher import auction_assignment, matching_cost
@@ -377,11 +375,12 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     detached.
 
     When the model's parameters lie on a CUDA device and there is no mesh,
-    the step is the counterpart of ``jax.jit``: the first call for a set of
-    input shapes and dtypes is an eager step on a side stream (it creates
-    the optimizer's state and builds the kernels), the second captures one
-    step into a ``torch.cuda.CUDAGraph`` over static copies of the inputs
-    and replays it, and every later call copies the inputs in and replays.
+    the step is the counterpart of ``jax.jit``, ``utils.graphs.graphed``
+    of the eager step: the first call for a set of input shapes and dtypes
+    is an eager step on a side stream (it creates the optimizer's state and
+    builds the kernels), the second captures one step into a
+    ``torch.cuda.CUDAGraph`` over static copies of the inputs and replays
+    it, and every later call copies the inputs in and replays.
     Each call is one optimizer update; the loss and metrics are clones of
     the graph's outputs.  The optimizer must then be capturable: every
     param group sets ``capturable=True`` (``torch.optim.AdamW(...,
@@ -451,7 +450,7 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
         eager_step.__wrapped__ = step
         return eager_step
     _check_capturable(optimizer)
-    return _graphed(step, device, optimizer)
+    return graphed(step, options=lambda: _options(optimizer))
 
 
 def _param_device(model: nn.Module) -> torch.device:
@@ -481,99 +480,3 @@ def _options(optimizer) -> list:
     return [(dict(group, params=list(group["params"])),
              [dict(optimizer.state.get(p, {})) for p in group["params"]])
             for group in optimizer.param_groups]
-
-
-def _same(a, b) -> bool:
-    """Whether two :func:`_options` (or parts of them) are the same: a
-    tensor by identity (the graph reads it where it lies), anything else by
-    type and value."""
-    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
-        return a is b
-    if isinstance(a, dict):
-        return (type(b) is dict and a.keys() == b.keys()
-                and all(_same(a[k], b[k]) for k in a))
-    if isinstance(a, (list, tuple)):
-        return (type(a) is type(b) and len(a) == len(b)
-                and all(map(_same, a, b)))
-    return type(a) is type(b) and a == b
-
-
-def _leaves(pyramid, targets) -> list:
-    """The step's input tensors, in a fixed order."""
-    return [*pyramid, *(targets[k] for k in sorted(targets))]
-
-
-def _graphed(step, device, optimizer):
-    """``step`` captured as a CUDA graph per input signature (the shapes,
-    dtypes and devices of its tensors), as :func:`make_train_step`
-    describes."""
-    # signature -> None (warmed up) or the captured step (_capture)
-    graphs = {}
-
-    def graphed_step(pyramid, targets):
-        leaves = _leaves(pyramid, targets)
-        key = (len(pyramid), tuple(sorted(targets)),
-               *((tuple(t.shape), t.dtype, t.device) for t in leaves))
-        with torch.cuda.device(device):
-            if key not in graphs:  # the warm-up, on a side stream
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    out = step(pyramid, targets)
-                torch.cuda.current_stream().wait_stream(side)
-                graphs[key] = None
-                return out
-            if (graphs[key] is None
-                    or not _same(graphs[key].options, _options(optimizer))):
-                graphs[key] = None  # the old graph's memory goes first
-                graphs[key] = _capture(step, optimizer, pyramid, targets)
-            captured = graphs[key]
-            for static, new in zip(captured.inputs, leaves):
-                static.copy_(new)
-            captured.graph.replay()
-            launches.add(captured.launched)
-            return _clone(captured.outputs)
-
-    graphed_step.__wrapped__ = step
-    return graphed_step
-
-
-class _Captured(NamedTuple):
-    """A captured step: the graph, its static inputs (in :func:`_leaves`'
-    order) and outputs, the launches that a replay issues (by kernel name),
-    and the optimizer's options that the capture read (:func:`_options`)."""
-    graph: torch.cuda.CUDAGraph
-    inputs: list
-    outputs: object
-    launched: dict
-    options: list
-
-
-def _capture(step, optimizer, pyramid, targets) -> _Captured:
-    """Capture one call of ``step`` on static copies of the inputs.  The
-    counters are left as they were, since the capture ran nothing."""
-    static_pyramid = [t.clone() for t in pyramid]
-    static_targets = {k: v.clone() for k, v in targets.items()}
-    graph = torch.cuda.CUDAGraph()
-    options = _options(optimizer)
-    optimizer.zero_grad(set_to_none=True)
-    before = launches.counts()
-    try:
-        with torch.cuda.graph(graph):
-            static_out = step(static_pyramid, static_targets)
-        after = launches.counts()
-    finally:
-        launches.add({k: before.get(k, 0) - n
-                      for k, n in launches.counts().items()})
-    launched = {k: n - before.get(k, 0) for k, n in after.items()}
-    return _Captured(graph, _leaves(static_pyramid, static_targets),
-                     static_out, launched, options)
-
-
-def _clone(out):
-    """A copy of the graph's outputs (a loss, or a loss and its metrics),
-    which the next replay overwrites."""
-    if isinstance(out, tuple):
-        loss, metrics = out
-        return loss.clone(), {k: v.clone() for k, v in metrics.items()}
-    return out.clone()

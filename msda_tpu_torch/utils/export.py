@@ -5,8 +5,12 @@ A deployed detector should not run the model's Python at serving time.
 :func:`export_fn` traces a function (or module) with ``torch.export`` into
 an ``ExportedProgram`` specialized to the example arguments' shapes,
 dtypes and device, and serializes it with ``torch.export.save``; a serving
-process deserializes the bytes with :func:`load_exported` and calls the
-program.  The model's Python constants (the level shapes, the numpy-built
+process deserializes the bytes with :func:`load_exported`, which returns the
+program captured as a CUDA graph per input signature and replayed
+(``utils.graphs.graphed``, the counterpart of the compiled executable that
+``jax.export`` serves): the first call on the card is an eager warm-up, the
+second captures the program and replays it, and each later call replays
+it.  ``__wrapped__`` is the program itself, run node by node.  The model's Python constants (the level shapes, the numpy-built
 encoder reference points and proposal anchors of ``models/detr.py``)
 become constants of the artifact; its parameters ride in it.
 
@@ -14,7 +18,8 @@ become constants of the artifact; its parameters ride in it.
                      *pyramid)
     save_exported(blob, "detector.pt2")
     serve = load_exported_file("detector.pt2")  # in the serving process
-    detections = serve(*pyramid)
+    with torch.inference_mode():
+        detections = serve(*pyramid)  # a warm-up, then a capture, then replays
 
 With ``impl="cuda"`` (or ``"auto"`` on CUDA tensors) the artifact calls
 the operator ``torch.ops.msda_tpu_torch.msda_fwd`` (``ops/library.py``),
@@ -50,6 +55,8 @@ import os
 
 import torch
 from torch import nn
+
+from .graphs import graphed
 
 __all__ = ["export_fn", "load_exported", "save_exported", "load_exported_file"]
 
@@ -138,13 +145,18 @@ def _without_metadata_checks(module):
 
 def load_exported(blob: bytes):
     """Deserialize an :func:`export_fn` artifact into a callable that takes
-    the example arguments' structure, without its checks of intermediate
-    tensors' metadata (:func:`_without_metadata_checks`), its ``forward``
-    on a frame-stack chunk of its own (:func:`_own_frame_chunk`).  The
+    the example arguments' structure: the program captured as a CUDA graph
+    per input signature and replayed (``utils.graphs.graphed``; on CPU
+    tensors the program itself runs).  Its ``__wrapped__`` is the program,
+    without its checks of intermediate tensors' metadata
+    (:func:`_without_metadata_checks`), its ``forward`` on a frame-stack
+    chunk of its own (:func:`_own_frame_chunk`).  The program's checks of
+    its inputs run at the warm-up and at the capture of each signature, so
+    a shape the artifact was not exported for is refused as before.  The
     calling process must have imported ``msda_tpu_torch`` (this module
     does), which registers the operators the artifact calls."""
-    return _own_frame_chunk(_without_metadata_checks(
-        torch.export.load(io.BytesIO(blob)).module()))
+    return graphed(_own_frame_chunk(_without_metadata_checks(
+        torch.export.load(io.BytesIO(blob)).module())))
 
 
 def save_exported(blob: bytes, path: str | os.PathLike) -> None:

@@ -41,6 +41,7 @@ from msda_tpu_torch.parallel import (  # noqa: E402
 )
 from msda_tpu_torch.parallel import train as train_module  # noqa: E402
 from msda_tpu_torch.parallel.matcher import plain_auction  # noqa: E402
+from msda_tpu_torch.utils import graphs as graphs_module  # noqa: E402
 
 F32 = np.float32
 EPS = 1e-3  # the matcher's default bid increment
@@ -264,9 +265,10 @@ class _FakeGraph:
 
 @pytest.fixture
 def graphs_stubbed(on_a_card, monkeypatch):
-    """The streams and the graph of ``_graphed`` stubbed: the warm-up and
-    the capture run the step on the CPU, a replay runs nothing.  Yields
-    the list of captures."""
+    """The streams and the graph of ``utils.graphs.graphed`` stubbed, and
+    its inputs taken for CUDA ones: the warm-up and the capture run the
+    step on the CPU, a replay runs nothing.  Yields the list of
+    captures."""
     captured = []
 
     class Stream:
@@ -287,6 +289,8 @@ def graphs_stubbed(on_a_card, monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
     monkeypatch.setattr(_FakeGraph, "replays", 0)
+    monkeypatch.setattr(graphs_module, "_card",
+                        lambda tensors: torch.device("cuda", 0))
     yield captured
 
 
@@ -332,14 +336,14 @@ def test_options_compare_tensors_by_identity():
     model = _model()
     opt = torch.optim.SGD(model.parameters(), lr=torch.tensor(1e-2))
     captured = train_module._options(opt)
-    assert train_module._same(captured, train_module._options(opt))
+    assert graphs_module._same(captured, train_module._options(opt))
     opt.param_groups[0]["lr"].fill_(5e-3)
-    assert train_module._same(captured, train_module._options(opt))
+    assert graphs_module._same(captured, train_module._options(opt))
     opt.param_groups[0]["lr"] = torch.tensor(5e-3)
-    assert not train_module._same(captured, train_module._options(opt))
+    assert not graphs_module._same(captured, train_module._options(opt))
     captured = train_module._options(opt)
     opt.param_groups[0]["momentum"] = 0.9
-    assert not train_module._same(captured, train_module._options(opt))
+    assert not graphs_module._same(captured, train_module._options(opt))
     captured = train_module._options(opt)
     opt.param_groups[0]["momentum"] = 1  # an int is not the float 0.9
-    assert not train_module._same(captured, train_module._options(opt))
+    assert not graphs_module._same(captured, train_module._options(opt))

@@ -9,6 +9,7 @@ that raises at a given row; a row cut mid-line is written by hand.
 """
 
 import csv
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -43,12 +44,17 @@ def _fake_bench(calls, cut_at=None):
 
 def test_cli_second_run_measures_nothing_new(tmp_path):
     out = tmp_path / "sweep.csv"
+    # the sweep on one thread: beside the test run's other workers, the
+    # default team of a thread a core waits at every parallel region for
+    # the cores that those workers hold, and took several times as long
+    # as on one thread
+    env = dict(os.environ, OMP_NUM_THREADS="1")
 
     def run(*extra):
         proc = subprocess.run(
             [sys.executable, "-m", "msda_tpu_torch.benchmark", *ARGS,
              "--out", str(out), *extra],
-            capture_output=True, text=True, timeout=300, cwd=ROOT)
+            capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
         assert proc.returncode == 0, proc.stderr
         return proc.stdout
 

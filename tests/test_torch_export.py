@@ -63,7 +63,7 @@ def test_export_op_round_trip(cpu_device, tmp_path):
     path = tmp_path / "op.pt2"
     save_exported(blob, path)
     served = load_exported_file(path)
-    assert "msda_tpu_torch.msda_fwd" in str(served.graph)
+    assert "msda_tpu_torch.msda_fwd" in str(served.__wrapped__.graph)
     got = served(*(torch.from_numpy(a) for a in (img, pts, wts)))
     again = load_exported(blob)(*(torch.from_numpy(a)
                                   for a in (img, pts, wts)))
@@ -164,12 +164,12 @@ def test_loaded_forward_fills_a_frame_chunk(cpu_device):
     plain = torch.export.load(io.BytesIO(blob)).module()
     served = load_exported(blob)
     before = type(plain).forward.__code__
-    after = type(served).forward.__code__
+    after = type(served.__wrapped__).forward.__code__
     assert before.co_nlocals + before.co_stacksize < _FRAME_CHUNK_SLOTS
     assert after.co_nlocals + after.co_stacksize >= _FRAME_CHUNK_SLOTS
-    assert "if False: _frame_pad_0 = " in served.code
+    assert "if False: _frame_pad_0 = " in served.__wrapped__.code
     # the same graph: the same operators on the same nodes, bit for bit
-    assert str(served.graph) == str(plain.graph)
+    assert str(served.__wrapped__.graph) == str(plain.graph)
     assert torch.equal(served(*args), plain(*args))
 
 
@@ -205,7 +205,7 @@ def test_loaded_program_checks_its_inputs_only(cpu_device):
                 if node.target is torch.ops.aten._assert_tensor_metadata.default]
 
     assert "call_function" in checked(plain)
-    assert checked(served) == ["placeholder"]
+    assert checked(served.__wrapped__) == ["placeholder"]
     assert torch.equal(served(*args), plain(*args))
     with pytest.raises(RuntimeError, match="dtype mismatch"):
         served(args[0].double(), *args[1:])

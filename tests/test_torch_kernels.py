@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 forward, K2 backward, the streamed K3'
 forward and K4' + K5' backward with their binning, and the auction
-matcher) against their plain versions, and the train step captured as a
-CUDA graph against the eager step, on the card.
+matcher) against their plain versions, and the train step and a serving
+request captured as CUDA graphs against the eager step and request, on the
+card.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them:
 the kernel has no CPU mode.  The file imports no JAX, so it runs on a
@@ -36,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from msda_tpu_torch.models import DeformableDetr, init_parameters
+from msda_tpu_torch.models import DeformableDetr, init_parameters, postprocess
 from msda_tpu_torch.ops import (
     level_shapes,
     multiscale_deformable_attention,
@@ -47,6 +48,7 @@ from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, library, stream
 from msda_tpu_torch.parallel import (auction_assignment, cuda_matcher,
                                      detection_loss, make_train_step)
 from msda_tpu_torch.parallel.matcher import plain_auction
+from msda_tpu_torch.utils import graphed
 from utils import get_functional_data
 
 pytestmark = pytest.mark.cuda
@@ -676,3 +678,65 @@ def test_graphed_step_takes_an_lr_change(device):
         eager.parameters(), lr=5e-3), LEVELS, **kw).__wrapped__(
         pyramid, targets)
     _assert_same_step(graphed, eager, loss, want)
+
+
+def _serving(device):
+    """The small two-stage detector's graphed request (forward +
+    ``postprocess``) and the device ``image_sizes`` of a batch of 2."""
+    model = DeformableDetr(num_classes=8, in_channels=[32] * 4, emb_dim=64,
+                           num_heads=4, num_points=2, num_queries=16,
+                           ffn_dim=128, with_box_refinement=True,
+                           two_stage=True, impl="cuda", device=device)
+    model = init_parameters(model, torch.Generator().manual_seed(0)).eval()
+    serve = graphed(lambda pyr, sizes: postprocess(
+        model(pyr, LEVELS), top_k=10, scoring="sigmoid", image_sizes=sizes))
+    sizes = torch.tensor([[128, 120], [96, 128]], device=device)
+    return serve, sizes
+
+
+def _pyramid(device, batch, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(
+        rng.standard_normal((batch, h, w, 32)).astype(np.float32)).to(device)
+        for h, w in LEVELS]
+
+
+def _assert_same_detections(got, want):
+    """Labels equal; scores and boxes within 1e-5 of max(1, |eager|)."""
+    assert torch.equal(got["labels"], want["labels"])
+    for k in ("scores", "boxes"):
+        _check(got[k], want[k], torch.float32)
+
+
+def test_graphed_request_matches_the_eager_request(device):
+    """The small two-stage detector served through ``graphed`` under
+    ``inference_mode``: the capture's replay equal to the eager request
+    (``__wrapped__``), 4 K1 launches a request, replays included; a replay
+    on a second pyramid equal to the eager request on it, and not to the
+    first request's detections."""
+    serve, sizes = _serving(device)
+    a, b = _pyramid(device, 2, 1), _pyramid(device, 2, 2)
+    with torch.inference_mode():
+        serve(a, sizes)  # the warm-up
+        before = cuda_fwd.LAUNCHES
+        got_a = serve(a, sizes)  # the capture and its replay
+        got_b = serve(b, sizes)
+        assert cuda_fwd.LAUNCHES - before == 2 * 4
+        _assert_same_detections(got_a, serve.__wrapped__(a, sizes))
+        _assert_same_detections(got_b, serve.__wrapped__(b, sizes))
+    assert not torch.equal(got_a["scores"], got_b["scores"])
+
+
+def test_graphed_request_takes_a_second_signature(device):
+    """Batch 1 after batch 2: a warm-up and a capture of its own, equal to
+    its eager request; batch 2 still replays its own graph."""
+    serve, sizes = _serving(device)
+    two, one = _pyramid(device, 2, 1), _pyramid(device, 1, 3)
+    with torch.inference_mode():
+        for _ in range(3):
+            serve(two, sizes)
+        for _ in range(2):
+            got = serve(one, sizes[:1])
+        _assert_same_detections(got, serve.__wrapped__(one, sizes[:1]))
+        _assert_same_detections(serve(two, sizes),
+                                serve.__wrapped__(two, sizes))
