@@ -38,6 +38,20 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    "error")`` with ``image_sizes`` on the card (no host sync); peak
    allocated memory of the eager request, the capture, a replay and the
    second signature's capture.
+4c. Serving over many input sizes (``serve_shapes``): the full-width
+   two-stage model, batch 2, f32 and bf16, through one graphed serving
+   function (its level shapes those of the pyramid) at the eight input
+   sizes of Deformable DETR's evaluation resize (shorter side 800, longer
+   at most 1333): each size's warm-up and capture (one memory pool), two
+   round-robin passes of replays on new seeded inputs, each held to the
+   eager request (labels equal, scores and boxes within 4b's bars) and
+   differing from its size's previous replay, three timed replays at
+   800x1333 beside phase 4's mean; the reserved and allocated growth over
+   the eight captures beside eight separate graphed functions (a pool
+   each, the control), one pool at most half the control's reserved
+   growth in f32; in f32 a run with ``max_signatures=4`` over the sizes
+   in blocks (32 calls, 12 captures), every call held to the eager
+   request, never more than 4 signatures kept.
 5. Training, the main path of the backward: the full-width two-stage model,
    batch 2, focal loss + auction matcher + aux and proposal losses,
    AdamW(capturable=True), through ``make_train_step``, whose step on a
@@ -72,6 +86,17 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    d. one f32 replay under ``utils.profile.trace``: 12 K1, 12 K2 and 6
       auction launches in the trace, the busy time and the idle share;
    e. the step's time, eager and graphed in turns, f32 and bf16.
+5c. Training over input sizes with a schedule (``train_shapes``): the
+   full-width two-stage model's graphed step, f32, batch 2, one step
+   (``img_shapes=None``) at three sizes of the training resize, (480,
+   800), (640, 1067) and (800, 1333), called in turns for three rounds;
+   AdamW with a tensor lr on the card under a linear warm-up
+   (``LambdaLR``, stepped after every call): one capture a size; every
+   call held to an eager step from copies of the same parameters and
+   optimizer state, lr included (5b c's bars); the host syncs of
+   ``scheduler.step()`` counted (``set_sync_debug_mode("warn")``); the
+   reserved growth over the captures below that of three separate steps,
+   a pool each.
 6. Timing: K1 and K2 against their plain versions, in turns, each beside
    its bound (``utils.bench.msda_bound``: the least time the card could
    take, from the bytes the call must move and the operations it must do,
@@ -165,12 +190,14 @@ auction kernel); the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -188,6 +215,7 @@ from msda_tpu_torch.parallel import train as train_module  # noqa: E402
 from msda_tpu_torch.parallel.matcher import plain_auction  # noqa: E402
 from msda_tpu_torch.ops.launches import counts as launches  # noqa: E402
 from msda_tpu_torch.ops.launches import reset as reset_launches  # noqa: E402
+from msda_tpu_torch.utils import graphs as graphs_module  # noqa: E402
 from msda_tpu_torch.utils import (annotate, card_identity, export_fn,  # noqa: E402
                                   graphed, load_exported_file, msda_bound,
                                   reference_workload, roofline_ms,
@@ -806,6 +834,213 @@ def graph_serving(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# Phase 4c: one graphed serving function over the input sizes of Deformable
+# DETR's evaluation resize (its public repository's datasets/coco.py,
+# make_coco_transforms: shorter side 800, longer side at most 1333, so the
+# batch's shape follows the aspect ratio), batch 2.
+EVAL_SIZES = ((800, 1333), (800, 1067), (800, 1200), (800, 800),
+              (750, 1333), (1333, 800), (1067, 800), (1200, 800))
+SHAPES_BOUND = 4  # max_signatures of 4c's bounded run
+# the bounded run's order: the first four sizes in three rounds (warm-ups,
+# captures, replays), the last four likewise (each warm-up drops one of
+# the first four), then the first four in two rounds (each a warm-up and a
+# capture again)
+BOUNDED_ORDER = (EVAL_SIZES[:4] * 3 + EVAL_SIZES[4:] * 3 + EVAL_SIZES[:4] * 2)
+BOUNDED_CAPTURES = 12
+
+
+def device_pyramid(seed: int, hw, batch: int = BATCH):
+    """A seeded pyramid for an input of ``hw`` pixels (``model_shapes``),
+    drawn on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn((batch, h, w, c), generator=g, device=DEVICE)
+            for (h, w), c in zip(model_shapes(hw), IN_CHANNELS)]
+
+
+def image_sizes(hw, batch: int = BATCH):
+    return torch.tensor([hw] * batch, device=DEVICE)
+
+
+def shapes_serving_fn(model, **kw):
+    """A user's serving function for every input size: the forward (its
+    level shapes those of the pyramid's tensors) and ``postprocess``,
+    graphed (``utils.graphs.graphed(..., **kw)``)."""
+    def request(pyramid, sizes):
+        shapes = tuple(tuple(level.shape[1:3]) for level in pyramid)
+        return postprocess(model(pyramid, shapes), top_k=100,
+                           scoring="sigmoid", image_sizes=sizes)
+
+    return graphed(request, **kw)
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """Count the captures of every graphed function (``graphs._capture``)
+    while the block runs; yields a one-element list, the count."""
+    real, count = graphs_module._capture, [0]
+
+    def counting(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+
+    graphs_module._capture = counting
+    try:
+        yield count
+    finally:
+        graphs_module._capture = real
+
+
+def memory_now() -> tuple[int, int]:
+    """Reserved and allocated bytes once the allocator's unused cached
+    blocks are released: what the live tensors and graphs hold."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+
+def growth_gib(before, after) -> tuple[float, float]:
+    return tuple((a - b) / 2**30 for a, b in zip(after, before))
+
+
+def held_request(fn, eager, pyramid, sizes, tol,
+                 what) -> tuple[dict, float]:
+    """One request through ``fn`` held to the eager request on the same
+    inputs (phase 4b's bars); returns ``fn``'s detections and their
+    error."""
+    got = timed_request(fn, pyramid, sizes)[0]
+    want = timed_request(eager, pyramid, sizes)[0]
+    check_detections(got)
+    same, err = detection_error(got, want)
+    if not same or err > tol:
+        raise AssertionError(f"{what}: detections differ from the eager "
+                             f"request's (labels {'equal' if same else 'differ'},"
+                             f" err {err:.3e}, tol {tol:g})")
+    return got, err
+
+
+def serve_shapes(smi: str, live_ms: dict | None = None) -> dict:
+    """Phase 4c: one graphed serving function over the eight evaluation
+    sizes, f32 and bf16: each size's warm-up and capture (one pool), two
+    round-robin passes of replays on new seeded inputs, each held to the
+    eager request and to differ from its size's previous replay, and three
+    timed replays at 800x1333 beside phase 4's mean (``live_ms``, by
+    dtype, when phase 4 ran); the reserved and
+    allocated growth beside eight separate graphed functions (one pool
+    each, the control); in f32 a run with max_signatures=4.  Returns every
+    kernel's launches."""
+    reset_launches()
+    requests = 0
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        model = build_model("auto", True, dtype)
+        tol = EXPORT_TOL[name]
+        with torch.inference_mode():
+            base = memory_now()
+            fn = shapes_serving_fn(model)
+            with counted_captures() as captures:
+                for i, hw in enumerate(EVAL_SIZES):
+                    pyramid = device_pyramid(100 + i, hw)
+                    for _ in range(2):  # the warm-up; the capture + replay
+                        check_detections(timed_request(
+                            fn, pyramid, image_sizes(hw))[0])
+                        requests += 1
+                    del pyramid
+                shared = growth_gib(base, memory_now())
+                worst, previous = 0.0, {}
+                for turn in range(2):
+                    for i, hw in enumerate(EVAL_SIZES):
+                        pyramid = device_pyramid(200 + 10 * turn + i, hw)
+                        got, err = held_request(
+                            fn, fn.__wrapped__, pyramid, image_sizes(hw),
+                            tol, f"4c {name} {hw} pass {turn}")
+                        requests += 2
+                        worst = max(worst, err)
+                        if hw in previous:
+                            same, err = detection_error(got, previous[hw])
+                            if same and err <= tol:
+                                raise AssertionError(
+                                    f"4c {name} {hw}: the replay returned "
+                                    "the previous input's detections")
+                        previous[hw] = got
+                        del pyramid
+                pyramid = device_pyramid(300, IMAGE_HW)
+                ms = [timed_request(fn, pyramid, image_sizes(IMAGE_HW))[1]
+                      for _ in range(3)]
+                requests += 3
+            if captures[0] != len(EVAL_SIZES) or fn.cache_size() != len(
+                    EVAL_SIZES):
+                raise AssertionError(f"4c {name}: {captures[0]} captures, "
+                                     f"{fn.cache_size()} signatures kept; "
+                                     f"expected {len(EVAL_SIZES)} of each")
+            mean = sum(ms) / len(ms)
+            log(f"4c {name}: one graphed function over {len(EVAL_SIZES)} "
+                f"sizes, {captures[0]} captures; 2 passes of replays held "
+                f"to the eager request (labels equal, worst scores/boxes "
+                f"err {worst:.3e}, tol {tol:g}), each differing from its "
+                f"size's previous replay; graphed ms at {IMAGE_HW[0]}x"
+                f"{IMAGE_HW[1]} {', '.join(f'{t:.3f}' for t in ms)} (mean "
+                f"{mean:.3f}" + (f"; phase 4: {live_ms[name]:.3f}"
+                                   if live_ms else "") + f") on {smi}")
+            del fn, pyramid, previous, got
+
+            base = memory_now()  # the control: a graphed function a size
+            control, each = [], []
+            for i, hw in enumerate(EVAL_SIZES):
+                control.append(shapes_serving_fn(model))
+                pyramid = device_pyramid(100 + i, hw)
+                for _ in range(2):
+                    check_detections(timed_request(
+                        control[-1], pyramid, image_sizes(hw))[0])
+                    requests += 1
+                del pyramid
+                each.append(memory_now()[0])
+            separate = growth_gib(base, memory_now())
+            del control
+            memory_now()
+            each = [(b - a) / 2**30 for a, b in zip([base[0]] + each, each)]
+            log(f"4c {name} memory over {len(EVAL_SIZES)} signatures, GiB "
+                f"grown (reserved, allocated): one function, one pool "
+                f"{shared[0]:.3f}, {shared[1]:.3f}; {len(EVAL_SIZES)} "
+                f"functions, a pool each {separate[0]:.3f}, "
+                f"{separate[1]:.3f} (reserved by size: "
+                f"{', '.join(f'{g:.3f}' for g in each)}); reserved "
+                f"{shared[0] / separate[0]:.2f}x the control on {smi}")
+            if name == "f32" and shared[0] > separate[0] / 2:
+                raise AssertionError(f"4c f32: one pool grew reserved "
+                                     f"{shared[0]:.3f} GiB, more than half "
+                                     f"of the control's {separate[0]:.3f}")
+
+            if name == "f32":  # the bounded run
+                fn = shapes_serving_fn(model, max_signatures=SHAPES_BOUND)
+                kept = 0
+                with counted_captures() as captures:
+                    for i, hw in enumerate(BOUNDED_ORDER):
+                        pyramid = device_pyramid(400 + i, hw)
+                        held_request(fn, fn.__wrapped__, pyramid,
+                                     image_sizes(hw), tol,
+                                     f"4c bounded call {i} {hw}")
+                        requests += 2
+                        kept = max(kept, fn.cache_size())
+                        del pyramid
+                if kept > SHAPES_BOUND or captures[0] != BOUNDED_CAPTURES:
+                    raise AssertionError(
+                        f"4c bounded: {kept} signatures kept (at most "
+                        f"{SHAPES_BOUND}), {captures[0]} captures "
+                        f"(expected {BOUNDED_CAPTURES})")
+                log(f"4c f32 with max_signatures={SHAPES_BOUND}: "
+                    f"{len(BOUNDED_ORDER)} calls over {len(EVAL_SIZES)} "
+                    f"sizes, every one held to the eager request; at most "
+                    f"{kept} signatures kept, {captures[0]} captures (a "
+                    f"dropped size warms up and captures again)")
+                del fn
+        del model
+        memory_now()
+    counts = launches()
+    check_path_launches("serving over shapes", counts, {
+        cuda_fwd.KERNEL: requests * LAUNCHES_PER_FORWARD})
+    log(f"4c: {requests} requests, launches {counts}")
+    return counts
+
+
 def adamw(model):
     """The Deformable DETR optimizer, capturable (the graphed step)."""
     return torch.optim.AdamW(model.parameters(), lr=2e-4, weight_decay=1e-4,
@@ -1303,6 +1538,121 @@ def graph_path(smi: str) -> dict:
                              f"times, expected {AUCTIONS_PER_STEP}")
     return {"auction": check_auction(smi, step_costs), "times": times,
             "profile": profile, "readings": readings}
+
+
+# Phase 5c: one graphed step over three input sizes of Deformable DETR's
+# training resize (datasets/coco.py: shorter side 480-800 in steps of 32,
+# longer side at most 1333), with a learning-rate warm-up stepped every call
+TRAIN_SIZES = ((480, 800), (640, 1067), (800, 1333))
+SHAPE_ROUNDS = 3  # A B C rounds: warm-ups, captures, replays
+SCHEDULE_LR = 2e-4  # AdamW, as phase 5
+SCHEDULE_WARMUP = 20  # LambdaLR's linear warm-up: the lr changes every call
+
+
+def synced(fn) -> int:
+    """Run ``fn`` with host syncs reported (``set_sync_debug_mode("warn")``)
+    and return how many it made."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def train_shapes(smi: str) -> dict:
+    """Phase 5c: the full-width two-stage model's graphed step, f32, over
+    three training sizes called in turns (A B C, three rounds: warm-ups,
+    captures, replays), AdamW with a tensor lr under a per-step warm-up:
+    one capture a size; every call held to an eager step from copies of
+    the same parameters and optimizer state, lr included (phase 5b c's
+    bars, ``compare_step``); the host syncs of ``scheduler.step()``; the
+    reserved growth over the captures beside three separate steps, one
+    pool each (the control).  Returns every kernel's launches."""
+    reset_launches()
+    batches = [(device_pyramid(60 + i, hw), make_targets(70 + i))
+               for i, hw in enumerate(TRAIN_SIZES)]
+    graphed_model = build_model("auto", True).train()
+    eager = build_model("auto", True).train()
+    # AdamW with a tensor lr on the card under a linear warm-up, and one
+    # step for every size (img_shapes=None)
+    optimizer = torch.optim.AdamW(
+        graphed_model.parameters(),
+        lr=torch.tensor(SCHEDULE_LR, device=DEVICE), weight_decay=1e-4,
+        capturable=True)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda k: min(1.0, (k + 1) / SCHEDULE_WARMUP))
+    step = make_train_step(graphed_model, optimizer, None,
+                           return_metrics=True, **LOSS_KW)
+    eopt = adamw(eager)
+    estep = make_train_step(eager, eopt, None, return_metrics=True,
+                            **LOSS_KW).__wrapped__
+    steps, syncs, worst = 0, 0, 0.0
+    with counted_captures() as captures:
+        for turn in range(SHAPE_ROUNDS):
+            if turn == 1:
+                base = memory_now()
+            for i, hw in enumerate(TRAIN_SIZES):
+                lr = optimizer.param_groups[0]["lr"].item()
+                _, readings = compare_step(
+                    f"f32 scheduled AdamW (lr {lr:.4e}) at {hw[0]}x{hw[1]}"
+                    f", round {turn}", step, graphed_model, optimizer, estep,
+                    eager, eopt, batches[i], batches[(i + 1) % 3])
+                steps += 4  # the graphed call, eager twice, the control
+                worst = max(worst, readings["update"])
+                syncs += synced(scheduler.step)
+            if turn == 1:
+                shared = growth_gib(base, memory_now())
+    if captures[0] != len(TRAIN_SIZES):
+        raise AssertionError(f"5c: {captures[0]} captures over "
+                             f"{SHAPE_ROUNDS} rounds of {len(TRAIN_SIZES)} "
+                             f"sizes, expected one a size")
+    log(f"5c: one graphed step over {len(TRAIN_SIZES)} sizes "
+        f"{list(TRAIN_SIZES)}, {SHAPE_ROUNDS} rounds: {captures[0]} "
+        f"captures; every call within the bars of an eager step from the "
+        f"same state (worst update {worst:.2e}); scheduler.step() made "
+        f"{syncs} host syncs in {SHAPE_ROUNDS * len(TRAIN_SIZES)} steps "
+        f"(set_sync_debug_mode('warn')); lr now "
+        f"{optimizer.param_groups[0]['lr'].item():.4e} on {smi}")
+    del step, estep, eopt, eager
+    optimizer.zero_grad(set_to_none=True)
+    memory_now()
+
+    # the control: a step a size, one pool each, on the same model and
+    # optimizer
+    separate = [make_train_step(graphed_model, optimizer, None,
+                                return_metrics=True, **LOSS_KW)
+                for _ in TRAIN_SIZES]
+    for fn, batch in zip(separate, batches):
+        fn(*batch)  # the warm-ups
+    base = memory_now()
+    each = []
+    for fn, batch in zip(separate, batches):
+        fn(*batch)  # the captures
+        each.append(memory_now()[0])
+    control = growth_gib(base, memory_now())
+    steps += 2 * len(TRAIN_SIZES)
+    each = [(b - a) / 2**30 for a, b in zip([base[0]] + each, each)]
+    log(f"5c memory over {len(TRAIN_SIZES)} captured sizes, GiB grown "
+        f"(reserved, allocated): one step, one pool {shared[0]:.3f}, "
+        f"{shared[1]:.3f}; a step a size {control[0]:.3f}, "
+        f"{control[1]:.3f} (reserved by size: "
+        f"{', '.join(f'{g:.3f}' for g in each)}); reserved "
+        f"{shared[0] / control[0]:.2f}x the control, "
+        f"{shared[0] / max(each):.2f}x the largest size's on {smi}")
+    if not shared[0] < control[0]:
+        raise AssertionError("5c: one pool grew no less than a pool a size")
+    del separate, graphed_model, optimizer, scheduler, batches
+    memory_now()
+    counts = launches()
+    check_path_launches("training over shapes", counts, {
+        cuda_fwd.KERNEL: steps * LAUNCHES_PER_FORWARD,
+        cuda_bwd.KERNEL: steps * LAUNCHES_PER_FORWARD,
+        cuda_matcher.KERNEL: steps * AUCTIONS_PER_STEP})
+    log(f"5c: {steps} steps, launches {counts}")
+    return counts
 
 
 def time_ms(fn, iters: int) -> float:
@@ -2284,9 +2634,13 @@ def main() -> None:
     check_gradient_parity()
     served, serve_ms = serve(smi)
     graph_serving(smi)
+    served_shapes = serve_shapes(
+        smi, {name: ms["graphed"] for name, ms in serve_ms.items()})
     trained, per_train_step = train(smi)
     step_graphs = graph_path(smi)
-    by_path = {"serve": served, "train": trained,
+    trained_shapes = train_shapes(smi)
+    by_path = {"serve": served, "serve_shapes": served_shapes,
+               "train": trained, "train_shapes": trained_shapes,
                **large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
              cuda_bwd.KERNEL: time_backward_kernel(smi)}

@@ -25,12 +25,14 @@ rank the same parameters.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.graphs import graphed
+from ..utils.graphs import _same, graphed
 from ..utils.profile import annotate
 from .boxes import generalized_box_iou
 from .matcher import auction_assignment, matching_cost
@@ -374,25 +376,49 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     the host per step unless the caller reads it.  The returned loss is
     detached.
 
+    ``img_shapes``: the pyramid's level shapes, host ints, or None to take
+    each call's from its pyramid (``(h, w)`` of each level's tensor), so
+    that one step trains at every input size of a multi-scale resize.
+
     When the model's parameters lie on a CUDA device and there is no mesh,
     the step is the counterpart of ``jax.jit``, ``utils.graphs.graphed``
     of the eager step: the first call for a set of input shapes and dtypes
     is an eager step on a side stream (it creates the optimizer's state and
     builds the kernels), the second captures one step into a
     ``torch.cuda.CUDAGraph`` over static copies of the inputs and replays
-    it, and every later call copies the inputs in and replays.
-    Each call is one optimizer update; the loss and metrics are clones of
-    the graph's outputs.  The optimizer must then be capturable: every
-    param group sets ``capturable=True`` (``torch.optim.AdamW(...,
-    capturable=True)``), or it is ``torch.optim.SGD``, whose state lies on
-    the device; any other raises ``ValueError``.  A capture bakes in the
-    param groups' options that are not tensors (a scheduler's float ``lr``,
-    say) and the tensors it reads: a call that finds an option changed, a
+    it, and every later call copies the inputs in and replays.  The
+    captures of all input shapes share one memory pool, and the step keeps
+    at most ``utils.graphs.MAX_SIGNATURES`` of them (the least recently
+    called dropped first).  Each call is one optimizer update; the loss
+    and metrics are clones of the graph's outputs.  The optimizer must then
+    be capturable: every param group sets ``capturable=True``
+    (``torch.optim.AdamW(..., capturable=True)``), or it is
+    ``torch.optim.SGD`` with a float ``lr``, whose state lies on the
+    device; any other raises ``ValueError`` (SGD reads a tensor ``lr`` on
+    the host at every step, which no graph can hold).  A capture bakes in
+    the param groups' options that are not tensors (a float ``lr``, say)
+    and the tensors it reads: a call that finds an option changed, a
     group's parameters, or a state tensor replaced (``load_state_dict``)
     captures the step again (as long as a capture takes), so that the
     change takes effect as in the eager step.  A tensor changed in place is
-    read by the graph and needs no new capture.  The inputs must be tensors
-    (``targets`` a dict of them) and ``img_shapes`` host ints, and the
+    read by the graph and needs no new capture.  So a learning-rate
+    schedule stepped every call wants a tensor ``lr`` on the card::
+
+        opt = torch.optim.AdamW(model.parameters(),
+                                lr=torch.tensor(2e-4, device="cuda"),
+                                weight_decay=1e-4, capturable=True)
+        schedule = torch.optim.lr_scheduler.LambdaLR(opt, warmup)
+        step = make_train_step(model, opt, None)
+        for pyramid, targets in batches:
+            loss = step(pyramid, targets)  # one capture per input shape
+            schedule.step()  # writes the lr tensor in place (fill_)
+
+    as ``optax`` computes a schedule's lr inside the jitted step from its
+    count: each replay reads the lr the scheduler last wrote (``LambdaLR``
+    writes it on the device, with no host sync).
+    A float ``lr`` changed every call captures every call; the first time
+    a float ``lr`` is found changed, the step warns (once) and names this
+    form.  The inputs must be tensors (``targets`` a dict of them), and the
     model's parameters keep their storage (update them in place, as
     ``load_state_dict`` does).  The kernels' launch counters
     (``ops.launches``) gain the captured step's launches at each replay.
@@ -420,7 +446,8 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
 
     def step(pyramid, targets):
         optimizer.zero_grad(set_to_none=True)
-        outputs = model(pyramid, img_shapes)
+        outputs = model(pyramid, img_shapes if img_shapes is not None else
+                        tuple(tuple(level.shape[1:3]) for level in pyramid))
         with annotate("loss"):
             loss, metrics = detection_loss(outputs, targets, **loss_kw)
         with annotate("backward"):
@@ -450,7 +477,7 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
         eager_step.__wrapped__ = step
         return eager_step
     _check_capturable(optimizer)
-    return graphed(step, options=lambda: _options(optimizer))
+    return graphed(step, options=_options_reader(optimizer))
 
 
 def _param_device(model: nn.Module) -> torch.device:
@@ -461,8 +488,19 @@ def _param_device(model: nn.Module) -> torch.device:
 def _check_capturable(optimizer) -> None:
     """Raise ``ValueError`` unless ``optimizer``'s update can be captured:
     every param group has ``capturable=True``, or it is ``SGD`` (its
-    momentum buffers lie on the device; it keeps nothing on the host)."""
+    momentum buffers lie on the device; it keeps nothing on the host) with
+    float learning rates (it reads a tensor ``lr`` on the host,
+    ``alpha=-lr``)."""
     if type(optimizer) is torch.optim.SGD:
+        if any(isinstance(group["lr"], torch.Tensor)
+               for group in optimizer.param_groups):
+            raise ValueError(
+                "the step on a CUDA device is captured as a CUDA graph, and "
+                "torch.optim.SGD reads a tensor lr on the host at every "
+                "step (alpha=-lr), which a graph cannot hold: give SGD a "
+                "float lr (a changed float lr captures the step again), or "
+                "schedule a tensor lr with torch.optim.AdamW(..., "
+                "lr=torch.tensor(lr, device=...), capturable=True)")
         return
     for group in optimizer.param_groups:
         if group.get("capturable") is not True:
@@ -480,3 +518,31 @@ def _options(optimizer) -> list:
     return [(dict(group, params=list(group["params"])),
              [dict(optimizer.state.get(p, {})) for p in group["params"]])
             for group in optimizer.param_groups]
+
+
+def _options_reader(optimizer):
+    """``_options`` of ``optimizer`` as ``graphed``'s ``options`` hook.  The
+    first reading that finds a param group's float ``lr`` changed since the
+    reading before it (the step captures again) warns, once, of the tensor
+    lr that a schedule can change without a capture."""
+    last, warned = [], False
+
+    def read() -> list:
+        nonlocal last, warned
+        reading = _options(optimizer)
+        lrs = [group["lr"] for group, _ in reading]
+        if not warned and any(
+                not isinstance(now, torch.Tensor) and not _same(now, before)
+                for now, before in zip(lrs, last)):
+            warned = True
+            warnings.warn(
+                "a param group's float lr changed, so the graphed train step "
+                "is captured again (as long as a capture takes); a schedule "
+                "that changes lr every step captures every step.  Schedule "
+                "a tensor lr instead, which the graph reads in place: "
+                "torch.optim.AdamW(..., lr=torch.tensor(lr, device=...), "
+                "capturable=True)", stacklevel=3)
+        last = lrs
+        return reading
+
+    return read

@@ -276,7 +276,7 @@ def graphs_stubbed(on_a_card, monkeypatch):
             pass
 
     @contextlib.contextmanager
-    def graph(g):
+    def graph(g, pool=None):
         captured.append(g)
         yield
 
@@ -288,6 +288,7 @@ def graphs_stubbed(on_a_card, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", Stream)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
     monkeypatch.setattr(_FakeGraph, "replays", 0)
     monkeypatch.setattr(graphs_module, "_card",
                         lambda tensors: torch.device("cuda", 0))

@@ -15,7 +15,10 @@ kernel wrapper does.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
+import itertools
+import weakref
 
 import numpy as np
 import pytest
@@ -35,7 +38,8 @@ from utils import DEFAULT_CFG, make_pyramid_shapes  # noqa: E402
 
 class _Graph:
     """A CUDA graph stand-in: the work recorded while it was being captured
-    runs again at each replay."""
+    runs again at each replay; ``pool`` is the memory pool it was captured
+    in."""
 
     made = 0
     recording = None  # the graph under capture
@@ -43,6 +47,7 @@ class _Graph:
     def __init__(self):
         _Graph.made += 1
         self.work = []
+        self.pool = None
 
     def replay(self):
         for work in self.work:
@@ -51,19 +56,23 @@ class _Graph:
 
 @pytest.fixture
 def stubbed(monkeypatch):
-    """The streams and the graph stubbed, ``cuda_fwd.LAUNCHES`` at 0."""
+    """The streams, the graph and the pool handles stubbed,
+    ``cuda_fwd.LAUNCHES`` at 0."""
 
     class Stream:
         def wait_stream(self, other):
             pass
 
     @contextlib.contextmanager
-    def graph(g):
+    def graph(g, pool=None):
+        g.pool = pool
         _Graph.recording = g
         try:
             yield
         finally:
             _Graph.recording = None
+
+    handles = itertools.count()
 
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
@@ -73,6 +82,8 @@ def stubbed(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", Stream)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: (0, next(handles)))
     monkeypatch.setattr(_Graph, "made", 0)
     monkeypatch.setattr(cuda_fwd, "LAUNCHES", 0)
 
@@ -233,6 +244,107 @@ def test_a_changed_option_captures_again(on_a_card):
     serve(a, 3)
     serve(a, 3)
     assert _Graph.made == 3
+
+
+def _recorded(statics):
+    """``scaled(x, 3)`` that keeps a weak reference to the static input of
+    each capture in ``statics``, by the input's shape, and the pool of each
+    capture in ``statics["pools"]``."""
+    def fn(x):
+        if _Graph.recording is not None:
+            statics[tuple(x.shape)] = weakref.ref(x)
+            statics.setdefault("pools", []).append(_Graph.recording.pool)
+        return scaled(x, 3)
+    return fn
+
+
+def test_every_capture_of_a_function_shares_one_pool(on_a_card):
+    """Every capture of one graphed function (two signatures here) gets the
+    same pool handle; another graphed function gets another."""
+    seen, other = {}, {}
+    serve, again = graphed(_recorded(seen)), graphed(_recorded(other))
+    for shape in ((2, 3), (4, 3)):
+        x = _tensor(0, shape)
+        for _ in range(3):
+            assert torch.equal(serve(x)["out"], x * 3)
+    for _ in range(2):
+        again(_tensor(1))
+    assert _Graph.made == 3
+    assert len(seen["pools"]) == 2 and len(set(seen["pools"])) == 1
+    assert set(seen["pools"]).isdisjoint(other["pools"])
+    assert None not in seen["pools"] + other["pools"]
+
+
+def test_the_least_recently_called_signature_is_dropped(on_a_card):
+    """At ``max_signatures`` a new signature drops the least recently
+    called one, warmed up or captured: its static inputs are freed."""
+    seen = {}
+    serve = graphed(_recorded(seen), max_signatures=2)
+    a, b, c = _tensor(0, (2, 3)), _tensor(1, (3, 3)), _tensor(2, (4, 3))
+    for x in (a, a, b, b, a):  # a is now the most recently called
+        serve(x)
+    assert _Graph.made == 2 and serve.cache_size() == 2
+    assert torch.equal(serve(c)["out"], c * 3)  # c's warm-up drops b
+    assert serve.cache_size() == 2
+    gc.collect()
+    assert seen[(3, 3)]() is None and seen[(2, 3)]() is not None
+    serve(c)  # c's capture
+    assert torch.equal(serve(a)["out"], a * 3)  # a's replay, a kept
+    assert _Graph.made == 3
+    serve(_tensor(3, (5, 3)))  # drops c, the least recently called now
+    gc.collect()
+    assert seen[(4, 3)]() is None and seen[(2, 3)]() is not None
+
+
+def test_a_dropped_signature_warms_up_and_captures_again(on_a_card):
+    """A signature that returns after it was dropped is new again: a
+    warm-up (the function run eagerly), then a capture, in the same pool."""
+    seen = {}
+    serve = graphed(_recorded(seen), max_signatures=1)
+    a, b = _tensor(0, (2, 3)), _tensor(1, (3, 3))
+    serve(a)
+    serve(a)
+    serve(b)  # b's warm-up drops a
+    assert (_Graph.made, cuda_fwd.LAUNCHES) == (1, 3)
+    assert torch.equal(serve(a)["out"], a * 3)  # a's warm-up: eager
+    assert (_Graph.made, cuda_fwd.LAUNCHES) == (1, 4)
+    assert torch.equal(serve(a)["out"], a * 3)  # a's capture and replay
+    assert torch.equal(serve(a)["out"], a * 3)
+    assert _Graph.made == 2 and serve.cache_size() == 1
+    assert len(seen["pools"]) == 2 and len(set(seen["pools"])) == 1
+
+
+def test_interleaved_signatures_replay_their_own_graphs(on_a_card):
+    """Three signatures called in turns: once each has its graph, every
+    call replays its own signature's graph on its new inputs."""
+    serve = graphed(scaled)
+    shapes = ((2, 3), (4, 3), (3, 5))
+    for seed in range(5):
+        for shape in shapes:
+            x = _tensor(10 * seed, shape)
+            assert torch.equal(serve(x, 3)["out"], x * 3)
+    assert _Graph.made == 3 and serve.cache_size() == 3
+    assert cuda_fwd.LAUNCHES == 15
+
+
+def test_a_recapture_keeps_the_pool(on_a_card):
+    """A capture again after a changed option is made in the function's
+    pool, where the graph it replaces lies."""
+    seen = {}
+    opts = {"lr": 0.1}
+    serve = graphed(_recorded(seen), options=lambda: dict(opts))
+    a = _tensor(0)
+    serve(a)
+    serve(a)
+    opts["lr"] = 0.2
+    assert torch.equal(serve(a)["out"], a * 3)
+    assert _Graph.made == 2 and serve.cache_size() == 1
+    assert len(seen["pools"]) == 2 and len(set(seen["pools"])) == 1
+
+
+def test_max_signatures_is_at_least_one():
+    with pytest.raises(ValueError, match="at least 1"):
+        graphed(scaled, max_signatures=0)
 
 
 def test_launch_counters_take_each_replay(on_a_card):

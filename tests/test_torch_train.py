@@ -12,11 +12,14 @@ array).  Tolerances:
     deep f32 model, as in test_torch_models.py), that scale being at least
     1e-3 of the model's largest gradient: a gradient that is zero in exact
     arithmetic (the self-attention key bias, to which the softmax is
-    invariant) holds rounding noise only.  Parameters after two SGD steps
-    1e-5.
+    invariant) holds rounding noise only.  Parameters after two SGD steps,
+    and after three scheduled AdamW steps, 1e-5 (AdamW: but for the key
+    biases, whose noise gradients Adam scales to steps of the lr).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
+import test_torch_auction as stubbed_card  # noqa: E402
 
 from msda_tpu.models import detr as jax_detr  # noqa: E402
 from msda_tpu.parallel import boxes as jax_boxes  # noqa: E402
@@ -326,8 +330,8 @@ def _train_data():
 
 @pytest.fixture(scope="module")
 def jax_training():
-    """Initial params, the first loss and gradients, and the params after
-    two SGD steps, from the JAX package."""
+    """Initial params, the first loss and gradients, the params after two
+    SGD steps, and the jitted loss and gradient, from the JAX package."""
     pyramid, targets = _train_data()
     model = jax_detr.DeformableDetr(**MODEL_KW, impl="reference")
     jpyr = [jnp.asarray(p) for p in pyramid]
@@ -346,7 +350,8 @@ def jax_training():
         updates, state = tx.update(g, state, p)
         p = optax.apply_updates(p, updates)
     return dict(pyramid=pyramid, targets=targets, params=params,
-                loss0=float(loss0), grads0=grads0, params2=p)
+                loss0=float(loss0), grads0=grads0, params2=p,
+                value_and_grad=value_and_grad)
 
 
 def _torch_model(params, **kw):
@@ -390,6 +395,57 @@ def test_two_sgd_steps_match_optax(jax_training):
                                    atol=1e-5, err_msg=name)
 
 
+SCHEDULE_LR, WARMUP = 1e-3, 3  # a linear warm-up over the steps compared
+
+
+def test_scheduled_adamw_steps_match_optax(jax_training):
+    """Three AdamW steps with a tensor lr under ``LambdaLR``'s linear
+    warm-up, the scheduler stepped after each call, against
+    ``optax.adamw`` over ``optax.linear_schedule``: optax's step k reads
+    ``schedule(k)``, the k-th call the lr that the scheduler's k steps
+    wrote; weight decay 1e-4 on both sides.  Losses and parameters within
+    1e-5, as the SGD steps, but for the self-attention key biases: the
+    loss is invariant to them (the softmax over keys ignores what every key
+    gains alike), so their gradients are rounding noise, which Adam's
+    normalisation turns into steps of about the lr, of either sign, on
+    either side; they are held to the most three Adam steps can move them,
+    the sum of the three lrs."""
+    schedule = optax.linear_schedule(SCHEDULE_LR / WARMUP, SCHEDULE_LR,
+                                     WARMUP - 1)
+    tx = optax.adamw(schedule, weight_decay=1e-4)
+    p = jax_training["params"]
+    state, want_losses = tx.init(p), []
+    for _ in range(3):
+        loss, g = jax_training["value_and_grad"](p)
+        want_losses.append(float(loss))
+        updates, state = tx.update(g, state, p)
+        p = optax.apply_updates(p, updates)
+
+    model = _torch_model(jax_training["params"])
+    pyramid, targets = _torch_batch(jax_training)
+    lr = torch.tensor(SCHEDULE_LR)
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=1e-4)
+    warmup = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda k: min(1.0, (k + 1) / WARMUP))
+    step = make_train_step(model, opt, SHAPES, **LOSS_KW)
+    losses = []
+    for k in range(3):
+        assert lr.item() == pytest.approx(float(schedule(k)), rel=1e-6)
+        losses.append(step(pyramid, targets).item())
+        warmup.step()
+    assert opt.param_groups[0]["lr"] is lr
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    want = state_dict_from_flax(p)
+    start = state_dict_from_flax(jax_training["params"])
+    moved = sum(float(schedule(k)) for k in range(3))
+    for name, t in model.state_dict().items():
+        if name.endswith("self_attn.key.bias"):
+            assert (t - start[name]).abs().max().item() <= 1.001 * moved
+            continue
+        np.testing.assert_allclose(_np(t), _np(want[name]), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 def test_train_step_returns_metrics_on_the_device(jax_training):
     model = _torch_model(jax_training["params"])
     pyramid, targets = _torch_batch(jax_training)
@@ -420,6 +476,80 @@ def test_remat_gives_the_same_loss_and_gradients(jax_training):
     for name in g0:
         torch.testing.assert_close(g1[name], g0[name], rtol=1e-6, atol=1e-7,
                                    msg=name)
+
+
+# --------------------------------------------------------------------------
+# the graphed step and the learning rate, with the capture stubbed by
+# tests/test_torch_auction.py's fixtures (the step taken for a card's, the
+# streams and the graph stubbed; a replay runs nothing)
+
+graphs_stubbed = stubbed_card.graphs_stubbed
+on_a_card = stubbed_card.on_a_card
+
+
+def _other_shape_batch():
+    """``test_torch_auction``'s batch cut to other level shapes."""
+    pyramid, targets = stubbed_card._batch()
+    return [level[:, :6, :5].contiguous() for level in pyramid], targets
+
+
+def test_a_scheduled_tensor_lr_captures_once_per_shape(graphs_stubbed,
+                                                       recwarn):
+    """AdamW with a tensor lr, ``LambdaLR`` stepped after every call, and
+    one step (``img_shapes=None``) over two input shapes called in turns:
+    one capture a shape, replays after; the scheduler writes the tensor
+    the graphs read in place, and nothing warns of a recapture."""
+    captured = graphs_stubbed
+    model = stubbed_card._model()
+    lr = torch.tensor(1e-3)
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=1e-4,
+                            capturable=True)
+    warmup = torch.optim.lr_scheduler.LambdaLR(opt, lambda k: (k + 1) / 10)
+    step = make_train_step(model, opt, None, **stubbed_card.LOSS_KW)
+    # a CPU build cannot step a capturable AdamW: the check has seen
+    # capturable=True, the steps here run without it
+    opt.param_groups[0]["capturable"] = False
+    batches = (stubbed_card._batch(), _other_shape_batch())
+    for i in range(8):
+        loss, _ = step(*batches[i % 2])
+        assert torch.isfinite(loss)
+        warmup.step()
+    assert (len(captured), stubbed_card._FakeGraph.replays) == (2, 6)
+    assert opt.param_groups[0]["lr"] is lr
+    assert lr.item() == pytest.approx(9e-4)
+    assert not [w for w in recwarn if "captured again" in str(w.message)]
+
+
+def test_graphed_sgd_refuses_a_tensor_lr(on_a_card):
+    """SGD reads a tensor lr on the host (``alpha=-lr``) at every step,
+    which no graph holds: the graphed step refuses it and says why."""
+    model = stubbed_card._model()
+    sgd = torch.optim.SGD(model.parameters(), lr=torch.tensor(1e-2))
+    with pytest.raises(ValueError, match="SGD reads a tensor lr"):
+        make_train_step(model, sgd, stubbed_card.SHAPES,
+                        **stubbed_card.LOSS_KW)
+
+
+def test_a_changed_float_lr_captures_again_and_warns_once(graphs_stubbed):
+    """A float lr changed before each call captures the step each time; the
+    first such change warns, once, and names the tensor-lr form."""
+    captured = graphs_stubbed
+    model = stubbed_card._model()
+    sgd = torch.optim.SGD(model.parameters(), lr=1e-2)
+    step = make_train_step(model, sgd, stubbed_card.SHAPES,
+                           **stubbed_card.LOSS_KW)
+    batch = stubbed_card._batch()
+    step(*batch)
+    step(*batch)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(3):
+            sgd.param_groups[0]["lr"] = 1e-2 / (i + 2)
+            step(*batch)
+    assert len(captured) == 4
+    said = [str(w.message) for w in caught
+            if "captured again" in str(w.message)]
+    assert len(said) == 1 and "lr=torch.tensor(lr" in said[0]
 
 
 # --------------------------------------------------------------------------
