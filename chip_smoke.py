@@ -15,7 +15,10 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    ``native_msda_backward`` on the same seeded inputs, at the reference
    workload, Deformable DETR's encoder and decoder shapes and a ragged N
    with out-of-bounds points; f32, bf16 and f16; every padding_mode x
-   align_corners.
+   align_corners.  K2 also (``BWD_CASES``): C = 30 with a ragged N and
+   out-of-bounds points, C = 160, every point of each (b, h) at one place
+   on every level (K2's exact adds of merged runs, ``csrc/msda_bwd.cu``),
+   and the model's own points at the encoder shape.
 3. Model parity: the full-width Deformable DETR (box refinement, no
    two-stage, so that no top-k can flip on a near tie) with impl="cuda"
    against impl="reference", same weights, f32: the outputs, then the
@@ -100,8 +103,11 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
 6. Timing: K1 and K2 against their plain versions, in turns, each beside
    its bound (``utils.bench.msda_bound``: the least time the card could
    take, from the bytes the call must move and the operations it must do,
-   with ``img`` counted in the rows the points reach); then K1 and K2 alone
-   at the 256-base pyramid (I = 87,040), beyond the card's L2.
+   with ``img`` counted in the rows the points reach), at the encoder, the
+   decoder and the reference workload, f32 and bf16; K2's device time by
+   kernel (the kernel, img_grad's memset and the casts) under the
+   profiler, and its bf16 time over its f32 time; then K1 and K2 alone at
+   the 256-base pyramid (I = 87,040), beyond the card's L2.
 7. The large-pyramid path (``ops/stream.py``, ``ops/cuda_stream.py``):
    a. the binning against ``stream.sample_bins``, and K3' and K4' + K5'
       against ``stream.plain_stream_fwd`` / ``plain_stream_bwd`` at the
@@ -194,6 +200,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -421,19 +428,62 @@ def check_kernel() -> float:
     return enc_f32_err
 
 
+# K2's own cases: C = 30 (not a multiple of 4: one channel a lane) with a
+# ragged N and out-of-bounds points; C = 160 (past G * VEC = 128: channel
+# steps, so K2 adds point by point); every point of each (b, h) at one
+# place on every level of the encoder's pyramid, 88,892 points on one
+# corner set a level (where one f32 atomic a point missed the 1e-4 bar:
+# K2's exact adds of a query's merged points are what hold it); and the
+# model's own points at the encoder shape (encoder layer 0's call of the
+# full-width model at 800x1333, batch 2).
+BWD_CASES = {
+    "c30_ragged_oob": dict(shapes=REF_SHAPES, B=2, N=1037, H=8, C=30, P=4,
+                           seed=5, oob=True),
+    "c160": dict(shapes=REF_SHAPES, B=2, N=517, H=8, C=160, P=4, seed=6),
+    "hot_pixel": dict(shapes=SLICE_SHAPES, B=BATCH,
+                      N=sum(h * w for h, w in SLICE_SHAPES), H=8, C=32, P=4,
+                      seed=7),
+}
+BACKWARD_CASES = (*OP_CASES, *BWD_CASES, "encoder_model")
+
+
+def bwd_case_inputs(name: str):
+    """``(shapes, img, pts, wts, out_grad)`` of one of phase 2's K2 cases,
+    f32 on the card."""
+    if name == "encoder_model":
+        img, shapes, pts, wts = model_call(IMAGE_HW, BATCH, 0)
+        rng = np.random.default_rng(8)
+        og = torch.from_numpy(rng.standard_normal(
+            (img.shape[0], pts.shape[1], img.shape[2], img.shape[3]),
+            dtype=np.float32)).to(DEVICE)
+        return shapes, img, pts, wts, og
+    case = {**OP_CASES, **BWD_CASES}[name]
+    img, pts, wts, og = op_inputs(**case, out_grad=True)
+    if name == "hot_pixel":  # one place on every level
+        pts = torch.tensor([0.37, 0.61], device=DEVICE).expand_as(pts)
+        pts = pts.contiguous()
+    return case["shapes"], img, pts, wts, og
+
+
 def check_backward_kernel() -> float:
-    """Phase 2, K2; returns the largest f32 abs error (over the three
-    gradients) at the encoder shape."""
+    """Phase 2, K2 on ``BACKWARD_CASES``; returns the largest f32 abs error
+    (over the three gradients) at the encoder shape."""
+    return check_backward_cases(BACKWARD_CASES)
+
+
+def check_backward_cases(names) -> float:
+    """K2 against ``native_msda_backward`` on ``names`` in every dtype and
+    mode; returns the largest f32 abs error at the encoder shape."""
     enc_f32_err = 0.0
-    for name, case in OP_CASES.items():
-        img32, pts, wts, og32 = op_inputs(**case, out_grad=True)
+    for name in names:
+        shapes, img32, pts, wts, og32 = bwd_case_inputs(name)
         for dtype in TOL:
             img, og = img32.to(dtype), og32.to(dtype)
             for padding_mode, align_corners in MODES:
-                got = cuda_bwd.msda_bwd(img, case["shapes"], pts, wts, og,
+                got = cuda_bwd.msda_bwd(img, shapes, pts, wts, og,
                                         padding_mode, align_corners)
                 torch.cuda.synchronize()
-                want = plain_msda_bwd(img, case["shapes"], pts, wts, og,
+                want = plain_msda_bwd(img, shapes, pts, wts, og,
                                       padding_mode, align_corners)
                 report, ok = [], True
                 for grad, g, w, tol in zip(
@@ -450,13 +500,20 @@ def check_backward_kernel() -> float:
                                   f"(tol {tol:g})")
                     if name == "encoder" and dtype == torch.float32:
                         enc_f32_err = max(enc_f32_err, abs_err)
-                log(f"K2 {name:18s} {str(dtype)[6:]:8s} {padding_mode:6s} "
-                    f"ac={int(align_corners)}: max_abs/err "
+                log(f"K2 {name:18s} {str(dtype)[6:]:8s} "
+                    f"{padding_mode:6s} ac={int(align_corners)}: max_abs/err "
                     f"{'; '.join(report)} {'ok' if ok else 'FAIL'}")
                 if not ok:
+                    off = 0
+                    for lvl, (h, w) in enumerate(shapes):
+                        part = errors(got[0][:, off:off + h * w],
+                                      want[0][:, off:off + h * w])
+                        log(f"  img_grad level {lvl} ({h}x{w}): max_abs "
+                            f"{part[0]:.2e} err {part[2]:.2e}")
+                        off += h * w
                     raise AssertionError(
-                        f"K2 disagrees with the plain version: {name} "
-                        f"{dtype} {padding_mode} ac={align_corners}")
+                        f"K2 disagrees with the plain version: "
+                        f"{name} {dtype} {padding_mode} ac={align_corners}")
                 del got, want
         del img32, pts, wts, og32
     return enc_f32_err
@@ -1703,6 +1760,26 @@ def time_kernel(smi: str) -> dict:
     return times
 
 
+K2_TRACED_CALLS = 10  # phase 6: K2's calls a trace, for its device split
+
+
+def k2_split(call, tag: str) -> str:
+    """Device ms a call of ``call`` by kernel, from a trace of
+    ``K2_TRACED_CALLS`` calls."""
+    with trace(os.path.join(TRACE_DIR, f"k2_{tag}")) as t:
+        for _ in range(K2_TRACED_CALLS):
+            call()
+    return "; ".join(f"{kernel_name(kname)} {ms / K2_TRACED_CALLS:.4f}"
+                     for kname, ms in t.kernel_ms().items())
+
+
+def kernel_name(name: str) -> str:
+    """A device event's kernel name without its namespace, template
+    arguments and parameters."""
+    found = re.search(r"\w*kernel\w*", name)
+    return (found.group(0) if found else name)[:40]
+
+
 def time_backward_kernel(smi: str) -> dict:
     """K2 vs its plain version, in turns (plain, kernel, kernel, plain);
     then, once, autograd through the plain forward in the working dtype,
@@ -1743,8 +1820,17 @@ def time_backward_kernel(smi: str) -> dict:
                 f"the plain forward {a:.4f} ms; bound {b['ms']:.4f} ms "
                 f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP), "
                 f"{100 * b['ms'] / k:.1f}% of it on {smi}")
+            # the device time of the kernel and of the call's other device
+            # work (img_grad's memset, the casts)
+            log(f"time K2 {name:18s} {str(dtype)[6:]:8s}: device ms a call "
+                f"by kernel: {k2_split(kernel, name)} on {smi}")
             del args, img, og
         del img32, pts, wts, og32
+    for name in ("encoder", "decoder", "reference_workload"):
+        f32, bf16 = (times[(name, d)][0] for d in (torch.float32,
+                                                    torch.bfloat16))
+        log(f"time K2 {name:18s}: bf16 / f32 {bf16 / f32:.3f} ({bf16:.4f} "
+            f"against {f32:.4f} ms) on {smi}")
     return times
 
 

@@ -15,10 +15,11 @@ wrappers: the ``ops`` package beside ``--parent`` (and beside each
 ``--also TAG=CSRC``), imported under another name (``parent_module``),
 which builds its own sources into its own ``build/`` and plans its own
 tiles.  K1 and K2 are timed at Deformable DETR's encoder and decoder
-shapes (``chip_smoke.py``'s ``OP_CASES``) in f32 and bf16, on uniform
-points (``chip_smoke.op_inputs``) and on the points of the first encoder
-and decoder layers of ``chip_smoke.py``'s full-width model
-(``model_inputs``); ``--streamed-only`` skips them.  The streamed kernels
+shapes and the reference workload (``chip_smoke.py``'s ``OP_CASES``) in
+f32 and bf16, on uniform points (``chip_smoke.op_inputs``) and on the
+points of the first encoder and decoder layers of ``chip_smoke.py``'s
+full-width model (``model_inputs``); ``--streamed-only`` skips them, and
+``--resident-only`` skips the streamed kernels.  The streamed kernels
 are timed at the 256- and 512-base pyramids (uniform points, B=4) and at
 encoder layer 0's call of the full-width model at 1600x2666 (batch 2),
 2560x4266 and 3200x5332 (batch 1), the model's own points, beside K1 / K2
@@ -173,8 +174,8 @@ def device_ms(fn, iters: int, symbol: str | None,
         if symbol and symbol in e.name:
             kernel += us
         if parts is not None:
-            name = (re.sub(r"[<(].*", "", e.name).split()
-                    or [e.name])[-1][:40]
+            found = re.search(r"\w*kernel\w*", e.name)
+            name = (found.group(0) if found else e.name)[:40]
             parts[name] = parts.get(name, 0.0) + us / iters / 1e3
     nan = float("nan")
     return ((kernel / iters / 1e3 if kernel else nan),
@@ -231,6 +232,9 @@ CASES = (
     ("decoder", "decoder",
      lambda: cs.op_inputs(**cs.OP_CASES["decoder"], out_grad=True), 200),
     ("decoder_model", "decoder", lambda: model_inputs(6), 200),
+    ("reference_workload", "reference_workload",
+     lambda: cs.op_inputs(**cs.OP_CASES["reference_workload"],
+                          out_grad=True), 20),
 )
 
 
@@ -342,6 +346,8 @@ def main(argv=None) -> None:
                          "whose streamed kernels are timed too")
     ap.add_argument("--streamed-only", action="store_true",
                     help="skip K1 and K2's A/B at the DETR shapes")
+    ap.add_argument("--resident-only", action="store_true",
+                    help="skip the streamed kernels' A/B")
     ap.add_argument("--out", default=os.path.join(OUT_DIR, "kernel_ab.log"),
                     help="where to write the lines printed")
     args = ap.parse_args(argv)
@@ -356,18 +362,24 @@ def main(argv=None) -> None:
             img, og = img32.to(dtype), og32.to(dtype)
             for lib, call in op_calls(shapes, img, pts, wts, og):
                 errs = compare(lib, libs, call)
+                parts = {}
                 res = in_turns({v: timed(lib, libs[(lib, v)], call)
                                 for v in ("old", "new")}, iters,
-                               KERNEL_SYMBOL[lib])
+                               KERNEL_SYMBOL[lib], parts)
                 what = f"{lib} {case_name} {str(dtype)[6:]}"
                 log_turns(what, res, smi)
+                for v, part in parts.items():
+                    log(f"ab {what} {v} device ms by kernel: " + "; ".join(
+                        f"{k} {ms:.4f}" for k, ms in sorted(
+                            part.items(), key=lambda kv: -kv[1])))
                 log(f"ab {what} new vs old, err relative to max(1, |old|): "
                     f"{', '.join(f'{e:.2e}' for e in errs)}")
                 swap(lib, libs[(lib, "new")])
         del img32, pts, wts, og32
 
-    stream_ab(args.parent, smi,
-              dict(a.split("=", 1) for a in args.also))
+    if not args.resident_only:
+        stream_ab(args.parent, smi,
+                  dict(a.split("=", 1) for a in args.also))
     log(f"kernel A/B done in {time.perf_counter() - t0:.1f} s")
     write_log(args.out)
 

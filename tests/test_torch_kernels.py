@@ -28,7 +28,12 @@ the alignment allow it and 1 otherwise: the cases cover both (C = 30 and 6
 take one channel a lane, as do img and out_grad views that start off a
 16-byte boundary), groups of 8, 16 and 32 lanes (C = 32, 48, 128), L*P
 that does not divide among a warp's tasks, and every query of a head on
-the same pixels (the img_grad adds of whole warps on one row).
+the same pixels (the img_grad adds of whole warps on one row).  K2 sums
+the img_grad terms of a query's consecutive points on the same pixels in
+registers and adds a run of two or more exactly (``csrc/msda_bwd.cu``):
+its cases add a 64-base pyramid with 21,847 queries, C = 32, 30, 24 and
+160 (channel steps: no merging), and every point of each (b, h) at one
+place on every level, where one f32 atomic a point missed the 1e-4 bar.
 """
 
 from itertools import product
@@ -189,6 +194,56 @@ def test_kernels_with_every_query_on_one_pixel(device, dtype, padding_mode,
     _check(got[0], want[0], dtype, IMG_GRAD_TOL[dtype])
     _check(got[1], want[1], torch.float32, POINT_GRAD_TOL)
     _check(got[2], want[2], torch.float32, POINT_GRAD_TOL)
+
+
+def _merge_inputs(device, dtype, N=21847, C=32, P=3, seed=11):
+    """Seeded inputs on a 64-base pyramid with out-of-bounds points."""
+    img, shapes, pts, wts, og = get_functional_data(
+        N=N, C=C, P=P, oob=True, seed=seed, base=64)
+    to = lambda a, dt=torch.float32: torch.from_numpy(a).to(device, dt)  # noqa: E731
+    return (to(img, dtype), shapes, to(pts), to(wts), to(og, dtype))
+
+
+def _check_bwd(got, want, dtype):
+    _check(got[0], want[0], dtype, IMG_GRAD_TOL[dtype])
+    _check(got[1], want[1], torch.float32, POINT_GRAD_TOL)
+    _check(got[2], want[2], torch.float32, POINT_GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("C", [32, 30, 24, 160])
+def test_backward_kernel_with_merged_adds(device, dtype, padding_mode,
+                                         align_corners, C):
+    """21,847 queries of 3 points on the 64-base pyramid, one launch.
+    C = 32: groups of 8 lanes; C = 30: one channel a lane (groups of 32);
+    C = 24: a partly idle group; C = 160: past G * VEC = 128 lanes'
+    channels (the gather steps over C, one atomic a point)."""
+    img, shapes, pts, wts, og = _merge_inputs(device, dtype, C=C)
+    mode = (padding_mode, align_corners)
+    before = cuda_bwd.LAUNCHES
+    got = cuda_bwd.msda_bwd(img, shapes, pts, wts, og, *mode)
+    torch.cuda.synchronize()
+    assert cuda_bwd.LAUNCHES == before + 1
+    _check_bwd(got, native_msda_backward(img, shapes, pts, wts, og, *mode),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_backward_kernel_with_every_point_at_one_place(
+        device, dtype, padding_mode, align_corners):
+    """Every point of every (b, h) at one place on every level: 87,388
+    points a level add into one set of four pixels (one f32 atomic a point
+    drifted past the 1e-4 bar there; K2's exact adds hold it)."""
+    img, shapes, pts, wts, og = _merge_inputs(device, dtype, P=4)
+    pts = torch.tensor([0.43, 0.58], device=device).expand_as(pts)
+    pts = pts.contiguous()
+    mode = (padding_mode, align_corners)
+    want = native_msda_backward(img, shapes, pts, wts, og, *mode)
+    assert want[0].float().abs().max() > 10
+    _check_bwd(cuda_bwd.msda_bwd(img, shapes, pts, wts, og, *mode), want,
+               dtype)
 
 
 def test_auto_backward_launches_the_backward_kernel_once(device):
