@@ -15,10 +15,13 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    ``native_msda_backward`` on the same seeded inputs, at the reference
    workload, Deformable DETR's encoder and decoder shapes and a ragged N
    with out-of-bounds points; f32, bf16 and f16; every padding_mode x
-   align_corners.  K2 also (``BWD_CASES``): C = 30 with a ragged N and
+   align_corners.  Both also (``BWD_CASES``): C = 30 with a ragged N and
    out-of-bounds points, C = 160, every point of each (b, h) at one place
    on every level (K2's exact adds of merged runs, ``csrc/msda_bwd.cu``),
-   and the model's own points at the encoder shape.
+   and the model's own points at the encoder shape.  K1 also
+   (``fwd_edge_cases``): N of T - 1, T, T + 1 and 2T + 1 queries a head
+   for its tile of T tasks, one level of 3 points, 16 levels of one point,
+   and 16 levels of 4 points at C = 160 (``csrc/msda_fwd.cu``).
 3. Model parity: the full-width Deformable DETR (box refinement, no
    two-stage, so that no top-k can flip on a near tie) with impl="cuda"
    against impl="reference", same weights, f32: the outputs, then the
@@ -248,6 +251,9 @@ MODEL = dict(num_classes=91, in_channels=IN_CHANNELS, emb_dim=256,
 LAUNCHES_PER_FORWARD = 12  # 6 encoder + 6 decoder layers
 # the reference workload of the benchmarks (msda_tpu/utils/bench.py)
 REF_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
+# the most levels the kernels take, 64x48 down to 8x6 (phase 2's K1 cases)
+SIXTEEN_LEVELS = tuple((64 >> (lvl // 4), 48 >> (lvl // 4))
+                       for lvl in range(16))
 # scripts/benchmark.py --pyramid big: I = 87,040, 356 MB of f32 img at B=4
 BIG_SHAPES = ((256, 256), (128, 128), (64, 64), (32, 32))
 # the 512-base pyramid, where the router streams the backward (phase 7b)
@@ -395,18 +401,45 @@ def bound(shapes, img, pts, wts, backward: bool) -> dict:
                       backward, touched_rows(shapes, pts, wts))
 
 
+def fwd_edge_cases() -> dict:
+    """K1's own cases: N of T - 1, T, T + 1 and 2T + 1 queries a head (T
+    the tile of K1's launch at C = 32: tile ends inside a head, on its end,
+    past it, and a ragged last tile), one level of 3 points (rows of 24 and
+    12 bytes: 8- and 4-byte copies), 16 levels of one point, and 16 levels
+    of 4 points at C = 160 (two chunks of points, two channel passes)."""
+    probe = op_inputs(REF_SHAPES, B=1, N=1, H=8, C=32, P=4, seed=0)
+    T = cuda_fwd.launch_plan(probe[0], REF_SHAPES, *probe[1:])["tile"]
+    cases = {f"tile_n{n}": dict(shapes=REF_SHAPES, B=1, N=n, H=8, C=32, P=4,
+                                seed=40 + i, oob=True)
+             for i, n in enumerate((T - 1, T, T + 1, 2 * T + 1))}
+    cases["l1_p3"] = dict(shapes=((37, 53),), B=2, N=301, H=8, C=32, P=3,
+                          seed=44, oob=True)
+    cases["l16_p1"] = dict(shapes=SIXTEEN_LEVELS, B=2, N=301, H=8, C=32,
+                           P=1, seed=45, oob=True)
+    cases["l16_p4_c160"] = dict(shapes=SIXTEEN_LEVELS, B=2, N=97, H=4,
+                                C=160, P=4, seed=46, oob=True)
+    return cases
+
+
 def check_kernel() -> float:
-    """Phase 2; returns the largest f32 abs error at the encoder shape."""
+    """Phase 2, K1 against its plain version on ``OP_CASES``, K2's own cases
+    (``BWD_CASES`` and the model's points) and ``fwd_edge_cases``; returns
+    the largest f32 abs error at the encoder shape."""
     enc_f32_err = 0.0
-    for name, case in OP_CASES.items():
-        img32, pts, wts = op_inputs(**case)
+    edges = fwd_edge_cases()
+    for name in (*BACKWARD_CASES, *edges):
+        if name in edges:
+            shapes = edges[name]["shapes"]
+            img32, pts, wts = op_inputs(**edges[name])
+        else:
+            shapes, img32, pts, wts, _ = bwd_case_inputs(name)
         for dtype, tol in TOL.items():
             img = img32.to(dtype)
             for padding_mode, align_corners in MODES:
-                got = cuda_fwd.msda_fwd(img, case["shapes"], pts, wts,
+                got = cuda_fwd.msda_fwd(img, shapes, pts, wts,
                                         padding_mode, align_corners)
                 torch.cuda.synchronize()
-                want = plain_msda(img, case["shapes"], pts, wts,
+                want = plain_msda(img, shapes, pts, wts,
                                   padding_mode, align_corners)
                 if got.shape != want.shape or got.dtype != want.dtype:
                     raise AssertionError(f"{name}: kernel gave {got.shape} "

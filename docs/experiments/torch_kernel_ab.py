@@ -85,7 +85,8 @@ def write_log(path: str) -> None:
 def build(jobs: dict, include: dict) -> dict:
     """{(library, variant): source text} -> loaded libraries, one nvcc per
     source, all started together; logs each build's registers.
-    ``include[(library, variant)]`` is the directory of its headers."""
+    ``include[(library, variant)]`` is the directory of its headers, or a
+    list of them, searched in order."""
     os.makedirs(OUT_DIR, exist_ok=True)
     nvcc = _build.find_nvcc()
     procs = []
@@ -94,7 +95,9 @@ def build(jobs: dict, include: dict) -> dict:
         with open(cu, "w") as f:
             f.write(text)
         so = os.path.join(OUT_DIR, f"lib{lib}_{variant}.so")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", include[(lib, variant)],
+        dirs = include[(lib, variant)]
+        dirs = [dirs] if isinstance(dirs, str) else dirs
+        cmd = [nvcc, *_build.NVCC_FLAGS, *(f"-I{d}" for d in dirs),
                "-o", so, cu]
         procs.append(((lib, variant), so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))

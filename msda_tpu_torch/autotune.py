@@ -4,10 +4,14 @@ counterpart of ``scripts/autotune.py``).
     python -m msda_tpu_torch.autotune [--stream] [--queries 10000]
         [--dtype float32|bfloat16] [--iters 60] [--per-constant K]
 
-Without ``--stream``: ``MSDA_WARPS_PER_BLOCK`` (``csrc/msda_geometry.cuh``)
-for K1 and K2 at the reference workload (``utils.bench.reference_workload``:
-B=4, H=8, C=32, P=4, the 64/32/16/8 pyramid, N = ``--queries``; border,
-``align_corners=True``, the mode of the repository's ``bench.py``).  With
+Without ``--stream``: K2's ``MSDA_WARPS_PER_BLOCK`` (``csrc/
+msda_geometry.cuh``; since K1's tiled design it no longer reaches K1) and
+K1's ``MSDA_FWD_WARPS`` (the tile: 32 / G tasks a warp), ``_STAGES``,
+``_BLOCKS_PER_SM``, ``_CHUNK`` and ``_BATCH`` (``csrc/msda_fwd_plan.cuh``)
+at the reference workload (``utils.bench.reference_workload``: B=4, H=8,
+C=32, P=4, the 64/32/16/8 pyramid, N = ``--queries``; border,
+``align_corners=True``, the mode of the repository's ``bench.py``); a
+constant's variants are built and timed for the kernel it reaches only.  With
 ``--stream``: ``STREAM_SLICE``, ``FWD_CHUNKS_PER_BLOCK`` and
 ``BWD_CHUNKS_PER_BLOCK`` (``csrc/msda_stream.cu``) for K3' and K4' + K5'
 at the 256-base pyramid, as whole calls (the binning included).
@@ -35,11 +39,22 @@ from .ops import _build, cuda_bwd, cuda_fwd, cuda_stream, stream
 from .ops.reference import native_msda_backward, native_multiscale_deformable_attention
 from .utils.bench import card_identity, reference_workload, timeit_op
 
-__all__ = ["CANDIDATES", "STREAM_CANDIDATES", "BIG_SHAPES", "variants",
+__all__ = ["CANDIDATES", "STREAM_CANDIDATES", "LIBRARY_OF", "BIG_SHAPES",
+           "variants", "reached",
            "swapped", "sweep", "main"]
 
 # each constant's candidates, its default first
-CANDIDATES = {"MSDA_WARPS_PER_BLOCK": (8, 4, 16)}
+CANDIDATES = {
+    "MSDA_WARPS_PER_BLOCK": (8, 4, 16),
+    "MSDA_FWD_WARPS": (4, 2, 8),
+    "MSDA_FWD_STAGES": (3, 2, 4),
+    "MSDA_FWD_BLOCKS_PER_SM": (8, 4, 16),
+    "MSDA_FWD_CHUNK": (32, 8, 64),
+    "MSDA_FWD_BATCH": (2, 1, 4),
+}
+# the library each constant reaches (a variant is built for that one only)
+LIBRARY_OF = {name: cuda_fwd.KERNEL if name.startswith("MSDA_FWD_")
+              else cuda_bwd.KERNEL for name in CANDIDATES}
 STREAM_CANDIDATES = {
     "STREAM_SLICE": (512, 256, 1024),
     "FWD_CHUNKS_PER_BLOCK": (4, 2, 8),
@@ -63,6 +78,16 @@ def variants(candidates: dict, per_constant: int | None = None) -> list:
         for v in values[1:per_constant]:
             out.append((f"{name}={v}", {name: v}))
     return out
+
+
+def reached(defines: dict, stream_: bool = False) -> tuple:
+    """The libraries a variant's ``defines`` reach: every swept library for
+    the default build, else those of its constants."""
+    if stream_:
+        return (cuda_stream.LIBRARY,)
+    if not defines:
+        return (cuda_fwd.KERNEL, cuda_bwd.KERNEL)
+    return tuple(sorted({LIBRARY_OF[name] for name in defines}))
 
 
 @contextlib.contextmanager
@@ -135,10 +160,9 @@ def sweep(stream_: bool = False, queries: int = 10000,
     """Build, check and time every variant; returns ``{kernel: {label: ms
     or None (failed)}}``.  Raises when the default fails."""
     candidates = STREAM_CANDIDATES if stream_ else CANDIDATES
-    libraries = ((cuda_stream.LIBRARY,) if stream_ else
-                 (cuda_fwd.KERNEL, cuda_bwd.KERNEL))
     todo = variants(candidates, per_constant)
-    jobs = [(name, defines) for _, defines in todo for name in libraries]
+    jobs = [(name, defines) for _, defines in todo
+            for name in reached(defines, stream_)]
     try:
         _build.build([n for n, _ in jobs], [d for _, d in jobs])
     except RuntimeError as e:  # the failed variants fail again below
@@ -146,7 +170,10 @@ def sweep(stream_: bool = False, queries: int = 10000,
     cases = _cases(stream_, queries, dtype)
     results = {kernel: {} for kernel in cases}
     for label, defines in todo:
+        libraries = reached(defines, stream_)
         for kernel, (call, check) in cases.items():
+            if not stream_ and kernel not in libraries:
+                continue  # the variant is the default build for this one
             try:
                 with swapped(libraries, defines):
                     err = check(call())
@@ -177,7 +204,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--stream", action="store_true",
                     help="sweep the streamed kernels' constants (STREAM_"
                          "SLICE, FWD_/BWD_CHUNKS_PER_BLOCK) at the 256-base "
-                         "pyramid instead of MSDA_WARPS_PER_BLOCK (K1, K2)")
+                         "pyramid instead of K1's MSDA_FWD_* and K2's "
+                         "MSDA_WARPS_PER_BLOCK")
     ap.add_argument("--queries", type=int, default=10000)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])

@@ -148,6 +148,28 @@ __device__ __forceinline__ void add_grad(float* p, const float4& ao,
   }
 }
 
+// Division by an int d >= 1 as a multiply and a shift, where an integer
+// division would cost some 20 instructions in every lane (a sample's query
+// row in msda_stream.cu, a task's query and head in msda_fwd.cu).  For
+// d >= 2, l = ceil(log2 d) and m = ceil(2^(31 + l) / d) < 2^32:
+// s / d == umulhi(s, m) >> (l - 1) for every 0 <= s < 2^31 (the round-up
+// method of Granlund and Montgomery).
+struct FastDiv {
+  unsigned mul;  // 0: d == 1
+  int shift;
+};
+
+inline FastDiv fast_div(const int d) {
+  if (d == 1) return {0u, 0};
+  int l = 0;
+  while ((1u << l) < (unsigned)d) ++l;
+  return {(unsigned)(((uint64_t(1) << (31 + l)) + d - 1) / d), l - 1};
+}
+
+__device__ __forceinline__ int divide(const int s, const FastDiv& d) {
+  return d.mul == 0 ? s : (int)(__umulhi((unsigned)s, d.mul) >> d.shift);
+}
+
 // Lanes per task: the task's C / vec steps rounded up to a power of two, at
 // most a warp.
 inline int group_lanes(int C, int vec) {

@@ -733,26 +733,9 @@ __device__ __forceinline__ void axpy4(float4& acc, const float w,
   acc.w += w * v.w;
 }
 
-// Division of a sample index by L * P (its query row) as a multiply and a
-// shift, where an integer division would cost some 20 instructions in
-// every lane for every sample.  For d >= 2, l = ceil(log2 d) and
-// m = ceil(2^(31 + l) / d) < 2^32: s / d == umulhi(s, m) >> (l - 1) for
-// every 0 <= s < 2^31 (the round-up method of Granlund and Montgomery).
-struct FastDiv {
-  unsigned mul;  // 0: d == 1
-  int shift;
-};
-
-FastDiv fast_div(const int d) {
-  if (d == 1) return {0u, 0};
-  int l = 0;
-  while ((1u << l) < (unsigned)d) ++l;
-  return {(unsigned)(((uint64_t(1) << (31 + l)) + d - 1) / d), l - 1};
-}
-
-__device__ __forceinline__ int divide(const int s, const FastDiv& d) {
-  return d.mul == 0 ? s : (int)(__umulhi((unsigned)s, d.mul) >> d.shift);
-}
+using msda::divide;
+using msda::fast_div;
+using msda::FastDiv;
 
 // A prepared sample: what its group needs, computed once per sample by one
 // thread (not by each of the group's G lanes).  `bits` holds the tile

@@ -9,6 +9,8 @@ anything the kernel does not take; it never falls back to the plain
 version.  Points and weights are cast to f32, as the JAX wrapper does; the
 output has ``img``'s dtype.  The library is built at first use
 (``_build.load_library``), and each launch adds one to ``LAUNCHES``.
+``launch_plan`` returns the tile, point chunks, copy widths and shared
+memory that a launch on given inputs uses (``csrc/msda_fwd_plan.cuh``).
 """
 
 from __future__ import annotations
@@ -20,12 +22,16 @@ import torch
 from . import _build, launches
 from .reference import level_shapes
 
-__all__ = ["LAUNCHES", "msda_fwd", "load", "check_inputs"]
+__all__ = ["LAUNCHES", "msda_fwd", "load", "check_inputs", "launch_plan",
+           "PLAN_FIELDS"]
 
 KERNEL = "msda_fwd"
 MAX_LEVELS = 16  # MSDA_MAX_LEVELS in the source
 _INT32_MAX = 2**31 - 1
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# msda::FwdPlan's fields, in the order msda_fwd_plan writes them
+PLAN_FIELDS = ("lanes", "vec", "tile", "chunk", "stride", "chunks", "passes",
+               "vw_pts", "vw_wts", "smem")
 
 # Number of kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
@@ -146,3 +152,25 @@ def msda_fwd(
     if err != 0:
         raise RuntimeError(f"msda_fwd_launch failed: CUDA error {err}")
     return out
+
+
+def launch_plan(img, img_shapes, sampling_points, attention_weights) -> dict:
+    """The plan of K1's launch on these inputs, ``{field: int}`` over
+    ``PLAN_FIELDS``: the lanes a task and channels a lane, the tile of
+    tasks a block, the points staged at once, the chunks and channel passes
+    a tile, the floats a copy of the points and of the weights, and the
+    dynamic shared bytes a block (``csrc/msda_fwd_plan.cuh``)."""
+    _, pts, wts = check_inputs(img, img_shapes, sampling_points,
+                               attention_weights, "border")
+    C = img.shape[-1]
+    L, P = pts.shape[3:5]
+    fn = load().msda_fwd_plan
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ci, vp, vp, vp, ci, ci, ci, vp]
+    fn.restype = ci
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    err = fn(DTYPE_CODES[img.dtype], img.data_ptr(), pts.data_ptr(),
+             wts.data_ptr(), C, L, P, ctypes.addressof(plan))
+    if err != 0:
+        raise RuntimeError(f"msda_fwd_plan failed: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, plan))

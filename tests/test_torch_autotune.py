@@ -101,14 +101,21 @@ def test_variants_build_side_by_side_and_only_when_stale(fake_nvcc, tmp_path):
 def test_candidate_lists():
     """Each constant's candidates, its default (the source's value) first,
     and the sweep's variants: the default, then one constant moved."""
-    assert autotune.CANDIDATES == {"MSDA_WARPS_PER_BLOCK": (8, 4, 16)}
+    assert autotune.CANDIDATES == {
+        "MSDA_WARPS_PER_BLOCK": (8, 4, 16),
+        "MSDA_FWD_WARPS": (4, 2, 8),
+        "MSDA_FWD_STAGES": (3, 2, 4),
+        "MSDA_FWD_BLOCKS_PER_SM": (8, 4, 16),
+        "MSDA_FWD_CHUNK": (32, 8, 64),
+        "MSDA_FWD_BATCH": (2, 1, 4),
+    }
     assert autotune.STREAM_CANDIDATES == {
         "STREAM_SLICE": (512, 256, 1024),
         "FWD_CHUNKS_PER_BLOCK": (4, 2, 8),
         "BWD_CHUNKS_PER_BLOCK": (8, 4, 16),
     }
-    sources = (CSRC / "msda_geometry.cuh").read_text() + (
-        CSRC / "msda_stream.cu").read_text()
+    sources = "".join((CSRC / f).read_text() for f in (
+        "msda_geometry.cuh", "msda_fwd_plan.cuh", "msda_stream.cu"))
     for name, values in {**autotune.CANDIDATES,
                          **autotune.STREAM_CANDIDATES}.items():
         guard = rf"#ifndef {name}\n#define {name} (\d+)\n#endif"
@@ -119,7 +126,12 @@ def test_candidate_lists():
         ("FWD_CHUNKS_PER_BLOCK=2", {"FWD_CHUNKS_PER_BLOCK": 2}),
         ("BWD_CHUNKS_PER_BLOCK=4", {"BWD_CHUNKS_PER_BLOCK": 4}),
     ]
-    assert len(autotune.variants(autotune.CANDIDATES)) == 3
+    assert len(autotune.variants(autotune.CANDIDATES)) == 13
+    # K1's constants reach K1 alone, MSDA_WARPS_PER_BLOCK K2 alone
+    assert autotune.reached({}) == ("msda_fwd", "msda_bwd")
+    assert autotune.reached({"MSDA_FWD_STAGES": 3}) == ("msda_fwd",)
+    assert autotune.reached({"MSDA_WARPS_PER_BLOCK": 4}) == ("msda_bwd",)
+    assert autotune.reached({"STREAM_SLICE": 256}, True) == ("msda_stream",)
 
 
 def test_help():

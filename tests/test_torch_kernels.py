@@ -34,6 +34,13 @@ registers and adds a run of two or more exactly (``csrc/msda_bwd.cu``):
 its cases add a 64-base pyramid with 21,847 queries, C = 32, 30, 24 and
 160 (channel steps: no merging), and every point of each (b, h) at one
 place on every level, where one f32 atomic a point missed the 1e-4 bar.
+K1 walks tiles of T consecutive (b, h, n) tasks whose points arrive in
+shared memory by asynchronous copies (``csrc/msda_fwd.cu``): its cases add
+N of T - 1, T, T + 1 and 2T + 1 (T from ``cuda_fwd.launch_plan``), rows of
+points that are not a multiple of 16 bytes (L * P = 3), 16 levels of one
+and of four points (two chunks of points; at C = 160 two channel passes
+too), 33 points a task at C = 30, points and weights off an 8-byte
+boundary (4-byte copies) and a head of about 94 tiles.
 """
 
 from itertools import product
@@ -117,6 +124,98 @@ def test_kernel_matches_plain(device, dtype, padding_mode, align_corners,
     want = native_multiscale_deformable_attention(
         img, shapes, pts, wts, padding_mode, align_corners)
     _check(got, want, dtype)
+
+
+def _fwd_inputs(device, dtype, shapes, N, C, P, B=2, H=3, seed=21):
+    """Seeded inputs on ``shapes`` with out-of-bounds points."""
+    rng = np.random.default_rng(seed)
+    L, I = len(shapes), sum(h * w for h, w in shapes)  # noqa: E741
+    img = torch.from_numpy(rng.standard_normal(
+        (B, I, H, C), dtype=np.float32)).to(device, dtype)
+    pts = torch.from_numpy(rng.random((B, N, H, L, P, 2), dtype=np.float32)
+                           * 2.0 - 0.5).to(device)
+    wts = torch.from_numpy(rng.random((B, N, H, L, P),
+                                      dtype=np.float32)).to(device)
+    return img, shapes, pts, wts
+
+
+def _check_fwd(img, shapes, pts, wts, dtype, mode):
+    before = cuda_fwd.LAUNCHES
+    got = cuda_fwd.msda_fwd(img, shapes, pts, wts, *mode)
+    torch.cuda.synchronize()
+    assert cuda_fwd.LAUNCHES == before + 1
+    _check(got, native_multiscale_deformable_attention(img, shapes, pts,
+                                                        wts, *mode), dtype)
+
+
+PYRAMID = [(16, 16), (8, 8), (4, 4), (2, 2)]
+SIXTEEN_LEVELS = [(64 >> (lvl // 4), 48 >> (lvl // 4)) for lvl in range(16)]
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("edge", ["T-1", "T", "T+1", "2T+1"])
+def test_kernel_at_tile_edges(device, dtype, padding_mode, align_corners,
+                              edge):
+    """K1 gathers T consecutive (b, h, n) tasks a block: N of T - 1, T,
+    T + 1 and 2T + 1 queries a head put tile ends inside a head, on its
+    end and past it, and leave a ragged last tile."""
+    img, shapes, pts, wts = _fwd_inputs(device, dtype, PYRAMID, 1, 32, 4)
+    T = cuda_fwd.launch_plan(img, shapes, pts, wts)["tile"]
+    N = {"T-1": T - 1, "T": T, "T+1": T + 1, "2T+1": 2 * T + 1}[edge]
+    img, shapes, pts, wts = _fwd_inputs(device, dtype, PYRAMID, N, 32, 4)
+    _check_fwd(img, shapes, pts, wts, dtype, (padding_mode, align_corners))
+
+
+# rows of points that are not a multiple of 16 bytes, and more points a
+# task than one chunk stages (msda_fwd_plan.cuh)
+ROW_CASES = [
+    dict(shapes=[(37, 53)], P=3, C=32),      # L*P = 3: 8- and 4-byte copies
+    dict(shapes=SIXTEEN_LEVELS, P=1, C=32),  # 16 levels of one point
+    dict(shapes=SIXTEEN_LEVELS, P=4, C=32),  # 64 points: two chunks
+    dict(shapes=SIXTEEN_LEVELS, P=4, C=160),  # two chunks, two channel passes
+    dict(shapes=[(37, 53)], P=33, C=30),     # chunks of 32 and 1; VEC = 1
+]
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("case", ROW_CASES,
+                         ids=lambda c: f"L{len(c['shapes'])}P{c['P']}"
+                                       f"C{c['C']}")
+def test_kernel_with_odd_rows_and_point_chunks(device, dtype, padding_mode,
+                                               align_corners, case):
+    img, shapes, pts, wts = _fwd_inputs(device, dtype, case["shapes"], 45,
+                                        case["C"], case["P"])
+    plan = cuda_fwd.launch_plan(img, shapes, pts, wts)
+    L, P = len(shapes), case["P"]
+    assert plan["chunks"] == -(-L * P // plan["chunk"])
+    if L * P % 2:
+        assert plan["vw_pts"] == 2 and plan["vw_wts"] == 1
+    _check_fwd(img, shapes, pts, wts, dtype, (padding_mode, align_corners))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_kernel_where_a_head_spans_many_tiles(device, dtype):
+    """3,001 queries a head (about 94 tiles of 32), on a 64-base pyramid,
+    so that a persistent block walks many tiles of one head."""
+    shapes = [(64, 64), (32, 32), (16, 16), (8, 8)]
+    img, shapes, pts, wts = _fwd_inputs(device, dtype, shapes, 3001, 32, 4,
+                                        B=2, H=2)
+    for mode in MODES:
+        _check_fwd(img, shapes, pts, wts, dtype, mode)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_kernel_takes_misaligned_points_and_weights(device, dtype):
+    """Points and weights whose storage starts off an 8-byte boundary are
+    copied 4 bytes at a time."""
+    img, shapes, pts, wts = _fwd_inputs(device, dtype, PYRAMID, 77, 32, 4)
+    pts, wts = _misaligned(pts), _misaligned(wts)
+    plan = cuda_fwd.launch_plan(img, shapes, pts, wts)
+    assert plan["vw_pts"] == plan["vw_wts"] == 1
+    for mode in MODES:
+        _check_fwd(img, shapes, pts, wts, dtype, mode)
 
 
 def test_auto_routes_cuda_tensors_to_the_kernel(device):
