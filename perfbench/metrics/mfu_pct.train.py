@@ -1,0 +1,12 @@
+"""Three forwards' operations a step (``arith.flops``) of every step in the
+window, over the window, as a share of the H100's f32 peak outside the
+tensor cores (TF32 stays off)."""
+
+from perfbench.arith import peaks
+from perfbench.arith.flops import detector_forward_flops
+
+
+def read(run):
+    step = 3 * detector_forward_flops(run.config, run.traffic["batch"],
+                                      run.traffic["size"])
+    return 100.0 * step * run.units / run.window_s / peaks.F32_FLOPS

@@ -1,0 +1,9 @@
+"""The benchmark's own tests: ``python -m pytest perfbench/tests``.  The
+repository's root is put on the path, as ``perfbench/run.py`` does."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
