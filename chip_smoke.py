@@ -226,7 +226,7 @@ from msda_tpu_torch.parallel.matcher import plain_auction  # noqa: E402
 from msda_tpu_torch.ops.launches import counts as launches  # noqa: E402
 from msda_tpu_torch.ops.launches import reset as reset_launches  # noqa: E402
 from msda_tpu_torch.utils import graphs as graphs_module  # noqa: E402
-from msda_tpu_torch.utils import (annotate, card_identity, export_fn,  # noqa: E402
+from msda_tpu_torch.utils import (card_identity, export_fn,  # noqa: E402
                                   graphed, load_exported_file, msda_bound,
                                   reference_workload, roofline_ms,
                                   save_exported, touched_rows, trace)
@@ -716,12 +716,11 @@ def serving_fn(model):
     """A user's serving function: the forward and ``postprocess`` of a
     request ``(pyramid, image_sizes)``, captured per input signature as a
     CUDA graph (``utils.graphs.graphed``); ``__wrapped__`` is the eager
-    request, with ``postprocess`` in a profiler span of its own."""
+    request (``postprocess`` runs in a profiler span of its own)."""
     def request(pyramid, image_sizes):
         out = model(pyramid, SLICE_SHAPES)
-        with annotate("postprocess"):
-            return postprocess(out, top_k=100, scoring="sigmoid",
-                               image_sizes=image_sizes)
+        return postprocess(out, top_k=100, scoring="sigmoid",
+                           image_sizes=image_sizes)
 
     return graphed(request)
 
@@ -2434,8 +2433,9 @@ def report_trace(what: str, t, unprofiled_ms: float, smi: str) -> None:
         log(f"  {ms:9.3f} ms  {name[:110]}")
     host, device = t.span_ms(), t.span_ms(device=True)
     log("  spans (host / device ms): " + "; ".join(
-        f"{name} {host[name]:.3f} / {device.get(name, float('nan')):.3f}"
-        for name in SPANS if name in host))
+        f"{name} {host.get(name, float('nan')):.3f} / "
+        f"{device.get(name, float('nan')):.3f}"
+        for name in SPANS if name in host or name in device))
 
 
 def profile_paths(smi: str, serve_ms: dict, eager_step_ms: float,

@@ -498,8 +498,15 @@ def postprocess(outputs, top_k: int = 100, scoring: str = "softmax",
     sigmoid over all classes (the focal-loss decode).
 
     Returns dict(scores=[B, K], labels=[B, K], boxes=[B, K, 4]), sorted by
-    descending score.
+    descending score.  Runs in the span ``postprocess``
+    (``utils.profile.annotate``).
     """
+    with annotate("postprocess"):
+        return _decode(outputs, top_k, scoring, image_sizes)
+
+
+def _decode(outputs, top_k, scoring, image_sizes):
+    """``postprocess``'s body."""
     logits = outputs["logits"]
     boxes = outputs["boxes"]
     B, N, K = logits.shape

@@ -47,6 +47,12 @@ model's 12 calls a forward and 12 a backward: on an H100's host, a
 forward + backward call at the decoder's shape took 0.3 ms more with
 ``register_autograd`` than with the ``autograd.Function`` before it
 (``docs/experiments/torch_dispatch_ab.py``, ``PERF.md``).
+
+The CUDA implementations run in the host spans ``msda.fwd`` and
+``msda.bwd`` (``utils.profile.annotate``; recorded only while a profiler
+runs, and never a device span): the op's own host work, its input checks,
+the router and the launch, apart from the dispatcher and autograd around
+it.  The backward's span is on autograd's thread.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profile import annotate
 from . import stream
 from .reference import native_msda_backward, native_multiscale_deformable_attention
 
@@ -85,30 +92,32 @@ def _fwd_cuda(img, sampling_points, attention_weights, level_shapes,
               padding_mode, align_corners):
     from . import cuda_fwd, cuda_stream
 
-    shapes = _pairs(level_shapes)
-    _, _, H, C = img.shape
-    if stream.use_streaming_fwd(shapes, H, C, img.dtype,
-                                stream.l2_bytes(img.device)):
-        fwd = cuda_stream.msda_stream_fwd
-    else:
-        fwd = cuda_fwd.msda_fwd
-    return fwd(img, shapes, sampling_points, attention_weights,
-               padding_mode, align_corners)
+    with annotate("msda.fwd"):
+        shapes = _pairs(level_shapes)
+        _, _, H, C = img.shape
+        if stream.use_streaming_fwd(shapes, H, C, img.dtype,
+                                    stream.l2_bytes(img.device)):
+            fwd = cuda_stream.msda_stream_fwd
+        else:
+            fwd = cuda_fwd.msda_fwd
+        return fwd(img, shapes, sampling_points, attention_weights,
+                   padding_mode, align_corners)
 
 
 def _bwd_cuda(img, sampling_points, attention_weights, out_grad,
               level_shapes, padding_mode, align_corners):
     from . import cuda_bwd, cuda_stream
 
-    shapes = _pairs(level_shapes)
-    _, _, H, C = img.shape
-    if stream.use_streaming_bwd(shapes, H, C, img.dtype,
-                                stream.l2_bytes(img.device)):
-        bwd = cuda_stream.msda_stream_bwd
-    else:
-        bwd = cuda_bwd.msda_bwd
-    return bwd(img, shapes, sampling_points, attention_weights, out_grad,
-               padding_mode, align_corners)
+    with annotate("msda.bwd"):
+        shapes = _pairs(level_shapes)
+        _, _, H, C = img.shape
+        if stream.use_streaming_bwd(shapes, H, C, img.dtype,
+                                    stream.l2_bytes(img.device)):
+            bwd = cuda_stream.msda_stream_bwd
+        else:
+            bwd = cuda_bwd.msda_bwd
+        return bwd(img, shapes, sampling_points, attention_weights,
+                   out_grad, padding_mode, align_corners)
 
 
 def _fwd_cpu(img, sampling_points, attention_weights, level_shapes,

@@ -365,7 +365,8 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
 
     The step zeroes the gradients, runs the forward, the loss and the
     backward, and steps the optimizer; the last three in the profiler spans
-    (``utils.profile.annotate``) "loss", "backward" and "optimizer".  Every
+    (``utils.profile.annotate``) "loss", "backward" and "optimizer", which
+    the graphed step's replays carry as device spans.  Every
     :func:`detection_loss` knob is threaded through.  ``torch.optim.AdamW(params, lr,
     weight_decay=1e-4)`` is the counterpart of the JAX demo's
     ``optax.adamw(lr)``: pass ``weight_decay`` explicitly, since optax's

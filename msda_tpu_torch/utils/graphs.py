@@ -71,6 +71,28 @@ no CUDA device run ``fn`` itself.  The kernels' launch counters
 (``ops.launches``) are left as they were by a capture, which runs nothing,
 and gain the captured launches at each replay.  ``__wrapped__`` is ``fn``;
 ``cache_size()`` is the number of signatures kept.
+
+The cache, as an operator sees it.  ``stats()`` returns the function's
+counters since it was made (``STATS``): ``calls`` (every call, those that
+ran ``fn`` itself on no card among them), ``replays``, ``warmups`` (a
+signature's first call, or its first after it was dropped: a miss),
+``captures`` (every capture), ``recaptures`` (the captures that a changed
+``options`` forced) and ``dropped`` (signatures dropped at
+``max_signatures``).  A server over unbounded shapes reads its miss rate
+there: ``warmups / calls``, each miss costing an eager call and, at the
+signature's next call, a capture.
+
+Spans (``utils.profile.annotate``: host spans, recorded only while a
+profiler runs).  A call on a card runs in ``graphed.call``; inside it,
+``graphed.options`` reads and compares ``options()`` (a call that finds its
+signature warmed up or captured), ``graphed.warmup`` is a miss's eager
+call, ``graphed.capture`` a capture and ``graphed.replay`` the replay's
+launch (``cudaGraphLaunch``).  The signature's key, the copies of the
+inputs and the clones of the outputs are ``graphed.call``'s own time.  A
+warm-up also loads the device spans' markers (``profile.prepare_markers``),
+so that a capture of ``fn``'s layer spans (``encoder``, ``decoder``,
+``postprocess``, ``loss``, ``backward``, ``optimizer``) loads nothing and
+every replay runs their markers.
 """
 
 from __future__ import annotations
@@ -82,10 +104,13 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..ops import launches
+from .profile import annotate, prepare_markers
 
-__all__ = ["graphed"]
+__all__ = ["graphed", "STATS"]
 
 MAX_SIGNATURES = 16  # the module docstring's arithmetic
+#: the counters of ``stats()``, the module docstring's
+STATS = ("calls", "replays", "warmups", "captures", "recaptures", "dropped")
 
 
 def graphed(fn, options=None, max_signatures: int = MAX_SIGNATURES):
@@ -103,9 +128,10 @@ def graphed(fn, options=None, max_signatures: int = MAX_SIGNATURES):
     # first
     graphs = OrderedDict()
     pool = None  # the handle of the function's memory pool
+    counts = dict.fromkeys(STATS, 0)
 
     def call(*args, **kwargs):
-        nonlocal pool
+        counts["calls"] += 1
         leaves, spec = pytree.tree_flatten((args, kwargs))
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
         device = _card(tensors)
@@ -115,37 +141,60 @@ def graphed(fn, options=None, max_signatures: int = MAX_SIGNATURES):
                            if isinstance(x, torch.Tensor) else x
                            for x in leaves),
                torch.is_grad_enabled(), torch.is_inference_mode_enabled())
-        with torch.cuda.device(device):
-            if key not in graphs:  # the warm-up, on a side stream
-                while len(graphs) >= max_signatures:
-                    graphs.popitem(last=False)
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    out = fn(*args, **kwargs)
-                torch.cuda.current_stream().wait_stream(side)
-                graphs[key] = None
-                return out
+        with annotate("graphed.call"), torch.cuda.device(device):
+            if key not in graphs:
+                with annotate("graphed.warmup"):
+                    return warm_up(key, args, kwargs)
             graphs.move_to_end(key)
             captured = graphs[key]
-            if captured is None or (options is not None
-                                    and not _same(captured.options,
-                                                  options())):
-                if pool is None:
-                    pool = torch.cuda.graph_pool_handle()
-                captured = graphs[key] = _capture(fn, leaves, spec, options,
-                                                  pool)
+            read, changed = None, False
+            if options is not None:
+                with annotate("graphed.options"):
+                    read = options()
+                    changed = (captured is not None
+                               and not _same(captured.options, read))
+            if captured is None or changed:
+                with annotate("graphed.capture"):
+                    captured = capture(key, leaves, spec, read,
+                                       recapture=captured is not None)
             for static, new in zip(captured.inputs, tensors):
                 static.copy_(new)
-            captured.graph.replay()
+            with annotate("graphed.replay"):
+                captured.graph.replay()
+            counts["replays"] += 1
             launches.add(captured.launched)
             return pytree.tree_map_only(torch.Tensor, torch.clone,
                                         captured.outputs)
+
+    def warm_up(key, args, kwargs):
+        """The signature's first call: ``fn`` eagerly, on a side stream."""
+        while len(graphs) >= max_signatures:
+            graphs.popitem(last=False)
+            counts["dropped"] += 1
+        prepare_markers()  # the span markers loaded before any capture
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = fn(*args, **kwargs)
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[key] = None
+        counts["warmups"] += 1
+        return out
+
+    def capture(key, leaves, spec, read, recapture):
+        nonlocal pool
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        graphs[key] = _capture(fn, leaves, spec, read, pool)
+        counts["captures"] += 1
+        counts["recaptures"] += recapture
+        return graphs[key]
 
     name = getattr(fn, "__name__", type(fn).__name__)
     call.__name__ = call.__qualname__ = f"graphed_{name}"
     call.__wrapped__ = fn
     call.cache_size = lambda: len(graphs)
+    call.stats = lambda: dict(counts)
     return call
 
 
@@ -165,14 +214,14 @@ class _Captured(NamedTuple):
     options: object
 
 
-def _capture(fn, leaves, spec, options, pool) -> _Captured:
+def _capture(fn, leaves, spec, read, pool) -> _Captured:
     """Capture one call of ``fn`` on static copies of the arguments'
-    tensors, allocating from the memory pool ``pool``.  The counters are
-    left as they were, since the capture ran nothing."""
+    tensors, allocating from the memory pool ``pool``; ``read`` is what
+    ``options`` returned for it.  The counters are left as they were, since
+    the capture ran nothing."""
     static = [x.clone() if isinstance(x, torch.Tensor) else x
               for x in leaves]
     args, kwargs = pytree.tree_unflatten(static, spec)
-    read = options() if options is not None else None
     graph = torch.cuda.CUDAGraph()
     before = launches.counts()
     try:

@@ -33,6 +33,7 @@ from msda_tpu_torch.models import DeformableDetr, postprocess, state_dict_from_f
 from msda_tpu_torch.ops import cuda_fwd, launches, library  # noqa: E402
 from msda_tpu_torch.utils import export_fn, graphed, load_exported  # noqa: E402
 from msda_tpu_torch.utils import graphs as graphs_module  # noqa: E402
+from msda_tpu_torch.utils import profile  # noqa: E402
 from utils import DEFAULT_CFG, make_pyramid_shapes  # noqa: E402
 
 
@@ -360,6 +361,78 @@ def test_launch_counters_take_each_replay(on_a_card):
     after = launches.counts()
     assert {k: after[k] - before[k] for k in after} == {
         k: 2 * (k == cuda_fwd.KERNEL) for k in after}
+
+
+def test_stats_count_calls_replays_misses_and_drops(on_a_card):
+    """``stats()``: every call; the replays; a warm-up per new or returning
+    signature; every capture, those forced by a changed ``options`` among
+    them; the signatures dropped at ``max_signatures``."""
+    opts = {"lr": 0.1}
+    serve = graphed(scaled, options=lambda: dict(opts), max_signatures=2)
+    assert serve.stats() == dict.fromkeys(graphs_module.STATS, 0)
+    a, b, c = _tensor(0, (2, 3)), _tensor(1, (3, 3)), _tensor(2, (4, 3))
+    for x in (a, a, a):  # a's warm-up, its capture and replay, a replay
+        serve(x, 3)
+    opts["lr"] = 0.2
+    serve(a, 3)  # a's capture again, and its replay
+    serve(b, 3)  # b's warm-up
+    serve(b, 3)  # b's capture and replay
+    serve(c, 3)  # c's warm-up drops a
+    assert serve.stats() == {"calls": 7, "replays": 4, "warmups": 3,
+                             "captures": 3, "recaptures": 1, "dropped": 1}
+    serve(a, 3)  # a returns: a warm-up again, and b is dropped
+    assert serve.stats() == {"calls": 8, "replays": 4, "warmups": 4,
+                             "captures": 3, "recaptures": 1, "dropped": 2}
+    stats = serve.stats()
+    stats["calls"] = 0  # a copy: the counters stay the function's
+    assert serve.stats()["calls"] == 8
+
+
+def test_cpu_calls_count_as_calls_alone(stubbed):
+    serve = graphed(scaled)
+    serve(_tensor(0), 3)
+    assert serve.stats() == {**dict.fromkeys(graphs_module.STATS, 0),
+                             "calls": 1}
+
+
+def test_host_spans_of_a_call_under_a_profiler(on_a_card, tmp_path):
+    """Under a profiler each call on a card is a ``graphed.call`` span that
+    holds its ``graphed.warmup``, or its ``graphed.options``, a
+    ``graphed.capture`` when it captures, and its ``graphed.replay``."""
+    opts = {"lr": 0.1}
+    serve = graphed(scaled, options=lambda: dict(opts))
+    a = _tensor(0)
+    with profile.trace(tmp_path / "trace") as t:
+        for _ in range(3):  # the warm-up, the capture and a replay, a replay
+            serve(a, 3)
+    spans = sorted((e for e in t.events()
+                    if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("graphed.")),
+                   key=lambda e: e["ts"])
+    calls = [e for e in spans if e["name"] == "graphed.call"]
+    assert len(calls) == 3
+    inside = [[e["name"] for e in spans if e["name"] != "graphed.call"
+               and call["ts"] <= e["ts"]
+               and e["ts"] + e["dur"] <= call["ts"] + call["dur"]]
+              for call in calls]
+    assert inside == [["graphed.warmup"],
+                      ["graphed.options", "graphed.capture",
+                       "graphed.replay"],
+                      ["graphed.options", "graphed.replay"]]
+
+
+def test_no_span_is_entered_without_a_profiler(on_a_card, monkeypatch):
+    """With no profiler running, a graphed call enters no
+    ``record_function``."""
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    serve = graphed(scaled, options=lambda: {})
+    a = _tensor(0)
+    for _ in range(3):
+        assert torch.equal(serve(a, 3)["out"], a * 3)
+    assert serve.stats()["replays"] == 2
 
 
 def test_load_exported_is_the_graphed_program(stubbed):
