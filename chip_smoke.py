@@ -7,7 +7,8 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
 
 1. Setup: print the card's name and power limit, turn TF32 off, build the
    CUDA kernels (K1 forward, K2 backward, the streamed K3' forward and
-   K4' + K5' backward with their binning, and the auction matcher) from
+   K4' + K5' backward with their binning, the auction matcher and the
+   fused residual add + LayerNorm) from
    ``msda_tpu_torch/csrc``, one ``nvcc`` per source, started together, and
    print the build time and each kernel's registers and spills.
 2. Kernels vs plain versions: K1 against
@@ -111,6 +112,15 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    kernel (the kernel, img_grad's memset and the casts) under the
    profiler, and its bf16 time over its f32 time; then K1 and K2 alone at
    the 256-base pyramid (I = 87,040), beyond the card's L2.
+6b. The fused residual add + LayerNorm (``ops/cuda_norm.py``) against its
+   plain version, the four-call chain ``add_layer_norm_plain``, on the
+   same card tensors, bf16 and f16, at the 800x1333 encoder call's 44,446
+   rows and the decoder's 600, D = 256: at least 99% of the outputs
+   bitwise equal and none more than one ulp of the output dtype apart
+   (taken at the output's magnitude, no finer than at 2**-10, as
+   ``tests/test_torch_norm.py``); each side's device time, a call of a
+   CUDA graph of ``NORM_CALLS`` calls replayed, beside the bound (6 D
+   bytes a row at 3.35 TB/s).
 7. The large-pyramid path (``ops/stream.py``, ``ops/cuda_stream.py``):
    a. the binning against ``stream.sample_bins``, and K3' and K4' + K5'
       against ``stream.plain_stream_fwd`` / ``plain_stream_bwd`` at the
@@ -141,7 +151,9 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       ``torch.ops.msda_tpu_torch.msda_fwd`` and ``msda_bwd`` on CUDA
       tensors at the decoder's shapes, f32 and bf16, both paddings;
    b. the full-width two-stage model's forward + postprocess exported with
-      ``utils.export.export_fn`` in f32 and bf16 and saved under
+      ``utils.export.export_fn`` (which traces without autograd, so the
+      bf16 program calls the fused add + LayerNorm, 30 a request, as the
+      live request does) in f32 and bf16 and saved under
       ``build/export_smoke/``; a second Python process, which imports
       torch, numpy and ``msda_tpu_torch.utils.export`` only, loads the
       artifacts with ``load_exported_file`` (the program graphed) and
@@ -193,8 +205,9 @@ exported model's, the mesh path's, the HF models' and the headline's
 included, and per
 training step, error, time, plain time
 and bound at the encoder shape for K1/K2, at the 256-base pyramid for
-the streamed kernels, and on the costs of a step's first head for the
-auction kernel); the last line is ``{"ok": true, "device": {...}}``.
+the streamed kernels, on the costs of a step's first head for the
+auction kernel, and at the 800x1333 encoder call in bf16 for the fused
+add + LayerNorm); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -216,7 +229,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from msda_tpu_torch import autotune, benchmark, capture_trace, detection_parity, headline, memory_report  # noqa: E402
 from msda_tpu_torch.models import DeformableDetr, attention, init_parameters, postprocess  # noqa: E402
-from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_stream, library, stream  # noqa: E402
+from msda_tpu_torch.models.detr import LAYER_NORM_EPS  # noqa: E402
+from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_norm, cuda_stream, library, stream  # noqa: E402
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
@@ -249,6 +263,10 @@ MODEL = dict(num_classes=91, in_channels=IN_CHANNELS, emb_dim=256,
              num_encoder_layers=6, num_decoder_layers=6, ffn_dim=1024,
              with_box_refinement=True)
 LAUNCHES_PER_FORWARD = 12  # 6 encoder + 6 decoder layers
+# the fused add + LayerNorm's launches a bf16 forward without autograd: two
+# an encoder layer, three a decoder layer (an f32 forward or one autograd
+# records launches none)
+NORMS_PER_HALF_FORWARD = 2 * 6 + 3 * 6
 # the reference workload of the benchmarks (msda_tpu/utils/bench.py)
 REF_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
 # the most levels the kernels take, 64x48 down to 8x6 (phase 2's K1 cases)
@@ -306,9 +324,12 @@ KERNELS = {  # name: (module, source, TPU kernel(s) it replaces)
     # no Pallas kernel: the XLA while_loop of the JAX matcher
     cuda_matcher.KERNEL: (cuda_matcher, "msda_tpu_torch/csrc/msda_auction.cu",
                           "msda_tpu/parallel/matcher.py:71"),
+    cuda_norm.KERNEL: (cuda_norm, "msda_tpu_torch/csrc/msda_norm.cu",
+                       "none: XLA's fusion of nn.LayerNorm()(x + y), "
+                       "msda_tpu/models/detr.py:80"),
 }
 LIBRARIES = (cuda_fwd.KERNEL, cuda_bwd.KERNEL, cuda_stream.LIBRARY,
-             cuda_matcher.KERNEL)
+             cuda_matcher.KERNEL, cuda_norm.KERNEL)
 
 
 def log(msg: str) -> None:
@@ -330,7 +351,7 @@ def setup() -> str:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.build(list(LIBRARIES))
-    for module in (cuda_fwd, cuda_bwd, cuda_stream, cuda_matcher):
+    for module in (cuda_fwd, cuda_bwd, cuda_stream, cuda_matcher, cuda_norm):
         module.load()
     log(f"build: {', '.join(LIBRARIES)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -782,9 +803,10 @@ def serve(smi: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
 
     reset_launches()
-    forwards, means = 0, {}
+    forwards, means, norms = 0, {}, 0
     with torch.inference_mode():
         for name, model in models.items():
+            at_start = forwards
             fn = serving_fn(model)
             for _ in range(2):  # the warm-up; the capture and its replay
                 check_detections(timed_request(fn, requests[0],
@@ -815,12 +837,15 @@ def serve(smi: str) -> tuple[dict, dict]:
                 f"{means[name]['eager'] / means[name]['graphed']:.2f}x "
                 f"faster on {smi}")
             del fn
+            if name == "bf16":
+                norms += (forwards - at_start) * NORMS_PER_HALF_FORWARD
     counts = launches()
     if forwards == 0:
         raise AssertionError("no forward was served")
     # Deformable DETR's pyramid stays on K1 (stream.use_streaming_fwd)
     check_path_launches("serving", counts, {
-        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD})
+        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD,
+        cuda_norm.KERNEL: norms})
     log(f"serving: {forwards} requests, launches {counts} "
         f"({LAUNCHES_PER_FORWARD} K1 per request, replays included)")
     del models
@@ -1018,10 +1043,11 @@ def serve_shapes(smi: str, live_ms: dict | None = None) -> dict:
     each, the control); in f32 a run with max_signatures=4.  Returns every
     kernel's launches."""
     reset_launches()
-    requests = 0
+    requests = norms = 0
     for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         model = build_model("auto", True, dtype)
         tol = EXPORT_TOL[name]
+        at_start = requests
         with torch.inference_mode():
             base = memory_now()
             fn = shapes_serving_fn(model)
@@ -1121,11 +1147,14 @@ def serve_shapes(smi: str, live_ms: dict | None = None) -> dict:
                     f"{kept} signatures kept, {captures[0]} captures (a "
                     f"dropped size warms up and captures again)")
                 del fn
+        if dtype is not None:
+            norms += (requests - at_start) * NORMS_PER_HALF_FORWARD
         del model
         memory_now()
     counts = launches()
     check_path_launches("serving over shapes", counts, {
-        cuda_fwd.KERNEL: requests * LAUNCHES_PER_FORWARD})
+        cuda_fwd.KERNEL: requests * LAUNCHES_PER_FORWARD,
+        cuda_norm.KERNEL: norms})
     log(f"4c: {requests} requests, launches {counts}")
     return counts
 
@@ -1866,6 +1895,116 @@ def time_backward_kernel(smi: str) -> dict:
     return times
 
 
+# phase 6b: the fused add + LayerNorm's rows (the 800x1333 encoder call,
+# the decoder's batch 2 x 300 queries), calls a timed graph, and the bar
+NORM_ROWS = {"encoder": 44_446, "decoder": 600}
+NORM_DIM = 256
+NORM_CALLS = 12
+NORM_MIN_EQUAL = 0.99
+NORM_ULP_FLOOR = 2.0**-10
+NORM_MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def norm_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """``|got - want|`` in ulps of the output dtype, each taken at the
+    larger of the two magnitudes and ``NORM_ULP_FLOOR``."""
+    g, w = got.float(), want.float()
+    scale = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                          torch.tensor(NORM_ULP_FLOOR, device=g.device))
+    _, exponent = torch.frexp(scale)
+    return (g - w).abs() / torch.ldexp(
+        torch.ones_like(scale), exponent - 1 - NORM_MANTISSA[got.dtype])
+
+
+def graph_call_ms(fn, operands, repeats: int = 20) -> float:
+    """The device time of one ``fn(*operands[i])``: ``len(operands)``
+    calls captured as one CUDA graph, the median replay over them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in operands:  # load the kernels before the capture
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in operands:
+            fn(*args)
+    graph.replay()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(operands))
+    del graph
+    return float(np.median(times))
+
+
+def check_norm(smi: str) -> dict:
+    """Phase 6b: ``cuda_norm.add_layer_norm`` against
+    ``add_layer_norm_plain`` on the same card tensors, bf16 and f16, at the
+    encoder's and the decoder's rows; each held to the bar, then both
+    timed in turns (plain, kernel, kernel, plain).  Returns the JSON row's
+    numbers, from the encoder call in bf16."""
+    D, eps = NORM_DIM, LAYER_NORM_EPS
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    weight = 1 + 0.1 * torch.randn(D, generator=g, device=DEVICE)
+    bias = 0.1 * torch.randn(D, generator=g, device=DEVICE)
+    worst, row = 0.0, None
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float16):
+            for name, rows in NORM_ROWS.items():
+                operands = [tuple(
+                    (torch.randn(rows, D, generator=g, device=DEVICE) * s
+                     ).to(dtype) for s in (2.0, 1.0))
+                    for _ in range(NORM_CALLS)]
+                a, b = operands[0]
+                before = cuda_norm.LAUNCHES
+                got = cuda_norm.add_layer_norm(a, b, weight, bias, eps)
+                want = cuda_norm.add_layer_norm_plain(a, b, weight, bias, eps)
+                torch.cuda.synchronize()
+                if cuda_norm.LAUNCHES != before + 1:
+                    raise AssertionError("add + LayerNorm: the wrapper did "
+                                         "not launch the kernel once")
+                equal = (got == want).float().mean().item()
+                ulps = norm_ulps(got, want).max().item()
+                err = (got.float() - want.float()).abs().max().item()
+                worst = max(worst, err)
+
+                def kernel(x, y):
+                    cuda_norm.add_layer_norm(x, y, weight, bias, eps)
+
+                def plain(x, y):
+                    cuda_norm.add_layer_norm_plain(x, y, weight, bias, eps)
+
+                p1 = graph_call_ms(plain, operands)
+                k1 = graph_call_ms(kernel, operands)
+                k2 = graph_call_ms(kernel, operands)
+                p2 = graph_call_ms(plain, operands)
+                k, p = (k1 + k2) / 2, (p1 + p2) / 2
+                b_ms, b_by = roofline_ms(6 * rows * D, 0.0)
+                log(f"add + LayerNorm {name} {rows}x{D} {str(dtype)[6:]}: "
+                    f"{equal:.4%} bitwise equal to the plain chain, at most "
+                    f"{ulps:g} ulp, max_abs_err {err:.3e}; kernel {k:.5f} ms "
+                    f"({k1:.5f}, {k2:.5f}), plain {p:.5f} ms ({p1:.5f}, "
+                    f"{p2:.5f}), bound {b_ms:.5f} ms by {b_by} "
+                    f"({b_ms / k:.1%}) on {smi}")
+                if not (torch.isfinite(got).all().item()
+                        and equal >= NORM_MIN_EQUAL and ulps <= 1):
+                    raise AssertionError(
+                        f"add + LayerNorm {name} {str(dtype)[6:]}: "
+                        f"{equal:.4%} bitwise equal, {ulps:g} ulp apart "
+                        f"(the bar: {NORM_MIN_EQUAL:.0%}, 1 ulp)")
+                if row is None:  # the encoder call in bf16
+                    row = {"ms": k, "plain_ms": p,
+                           "bound": {"ms": b_ms, "bound_by": b_by}}
+                del operands, got, want
+    return {**row, "err": worst}
+
+
 def time_big_pyramid(smi: str) -> None:
     """K1 and K2 alone at the 256-base pyramid (f32 img of 356 MB, beyond
     the 50 MB L2): the measurement to take before a streamed large-pyramid
@@ -2411,7 +2550,9 @@ def export_path(smi: str, live_ms: dict) -> dict:
                                  "slower than the live graphed request")
     counts = served["launches"]
     check_path_launches("export", counts, {
-        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD})
+        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD,
+        cuda_norm.KERNEL: (served["bf16"]["forwards"]
+                           * NORMS_PER_HALF_FORWARD)})
     return counts
 
 
@@ -2731,7 +2872,7 @@ def headline_lines(smi: str) -> dict:
               for text in run.stderr.splitlines()
               if text.startswith("launches ")]
     # the op's kernels: the headline process runs the op alone
-    op_kernels = set(launches()) - {cuda_matcher.KERNEL}
+    op_kernels = set(launches()) - {cuda_matcher.KERNEL, cuda_norm.KERNEL}
     if len(counts) != 1 or set(counts[0]) != op_kernels:
         raise AssertionError(f"headline: launch counts {counts}, expected "
                              f"one line with the keys {sorted(op_kernels)}")
@@ -2763,6 +2904,8 @@ def main() -> None:
                **large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
              cuda_bwd.KERNEL: time_backward_kernel(smi)}
+    norm = check_norm(smi)
+    errs[cuda_norm.KERNEL] = norm["err"]
     time_big_pyramid(smi)
     stream_times = time_stream_kernels(smi)
     sweep_pyramids(smi)
@@ -2787,6 +2930,8 @@ def main() -> None:
         elif name == cuda_matcher.KERNEL:  # a step's first head's costs
             ms, plain_ms, b = auction["ms"], auction["plain_ms"], (
                 auction["bound"])
+        elif name == cuda_norm.KERNEL:  # the 800x1333 encoder call, bf16
+            ms, plain_ms, b = norm["ms"], norm["plain_ms"], norm["bound"]
         else:  # the streamed kernels: the 256-base pyramid, f32
             ms, plain_ms, b = stream_times[(name, torch.float32)]
         # a process counts the kernels whose wrappers it imported: the
@@ -2807,7 +2952,8 @@ def main() -> None:
             "bound_ms": b["ms"],
             "bound_by": b["bound_by"],
             # no single PyTorch call computes MSDA (grid_sample per level,
-            # then the weights, then a sum), the binning or an assignment
+            # then the weights, then a sum), the binning, an assignment or
+            # a sum's LayerNorm
             "library_ms": None,
         })
         if name == cuda_matcher.KERNEL:

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import level_shapes
+from ..ops import cuda_norm, level_shapes, library
 from ..parallel.boxes import box_cxcywh_to_xyxy
 from ..utils.profile import annotate
 from .attention import Dense, MultiscaleDeformableAttention, device_constant
@@ -102,21 +102,47 @@ def _inv_sigmoid(p: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` with flax ``nn.LayerNorm``'s eps (1e-6) and dtype
     policy: statistics in at least f32, output in ``compute_dtype`` (or the
-    promoted input/parameter dtype)."""
+    promoted input/parameter dtype).
+
+    ``forward(x, residual)`` normalizes the residual sum ``x + residual``.
+    Where the activations are CUDA tensors of a half type that the output
+    keeps, of a width the kernel takes, and autograd records nothing, the
+    sum and the norm are one hand-written kernel
+    (``torch.ops.msda_tpu_torch.add_layer_norm``, ``csrc/msda_norm.cu``):
+    the same rounding of the sum, f32 statistics, the same output dtype.
+    Every other call (the CPU, f32, training) adds and normalizes as four
+    PyTorch calls: the add, a cast to f32, ``F.layer_norm``, a cast back."""
 
     def __init__(self, dim: int, compute_dtype: torch.dtype | None = None,
                  device=None):
         super().__init__(dim, eps=LAYER_NORM_EPS, device=device)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         out_dtype = self.compute_dtype or torch.promote_types(
             x.dtype, self.weight.dtype)
+        if residual is not None:
+            if self._fused(x, residual, out_dtype):
+                return library.add_layer_norm(x, residual, self.weight,
+                                              self.bias, self.eps)
+            x = x + residual
         stat_dtype = torch.promote_types(x.dtype, torch.float32)
         y = nn.functional.layer_norm(
             x.to(stat_dtype), self.normalized_shape,
             self.weight.to(stat_dtype), self.bias.to(stat_dtype), self.eps)
         return y.to(out_dtype)
+
+    def _fused(self, x, residual, out_dtype) -> bool:
+        """Whether ``x + residual`` takes the fused kernel."""
+        return (x.is_cuda and x.dtype in cuda_norm.DTYPES
+                and residual.dtype == x.dtype == out_dtype
+                and residual.shape == x.shape
+                and residual.device == x.device
+                and cuda_norm.supported(x.shape[-1])
+                and not (torch.is_grad_enabled() and any(
+                    t.requires_grad
+                    for t in (x, residual, self.weight, self.bias))))
 
 
 class _FFN(nn.Module):
@@ -128,7 +154,7 @@ class _FFN(nn.Module):
 
     def forward(self, x):
         y = self.dense_1(torch.relu(self.dense_0(x)))
-        return self.norm_0(x + y)
+        return self.norm_0(x, y)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -189,7 +215,7 @@ class DeformableEncoderLayer(nn.Module):
         B, I, _ = feats.shape  # noqa: E741
         refs = reference_points[None].expand(B, I, 2)
         y = self.msda(feats, img_shapes, feats, refs)
-        x = self.norm_0(feats + y)
+        x = self.norm_0(feats, y)
         return self.ffn(x)
 
 
@@ -215,9 +241,9 @@ class DeformableDecoderLayer(nn.Module):
 
     def forward(self, queries, feats, img_shapes, reference_points):
         """queries [B, N, D]; feats [B, I, D]; reference_points [B, N, 2|4]."""
-        x = self.norm_0(queries + self.self_attn(queries))
+        x = self.norm_0(queries, self.self_attn(queries))
         y = self.msda(feats, img_shapes, x, reference_points)
-        x = self.norm_1(x + y)
+        x = self.norm_1(x, y)
         return self.ffn(x)
 
 

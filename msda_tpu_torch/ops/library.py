@@ -48,6 +48,20 @@ forward + backward call at the decoder's shape took 0.3 ms more with
 ``register_autograd`` than with the ``autograd.Function`` before it
 (``docs/experiments/torch_dispatch_ab.py``, ``PERF.md``).
 
+``add_layer_norm`` is the detector's residual add + LayerNorm for
+half-type activations (``models/detr.py``'s ``LayerNorm``), one operator so
+that an exported or captured model keeps it:
+
+    add_layer_norm(a, b, weight, bias, eps) -> out
+
+``out`` is the LayerNorm of ``a + b`` over the last dimension, in ``a``'s
+dtype.  CUDA: ``cuda_norm.add_layer_norm``, the hand-written kernel (bf16
+and f16, D a multiple of 8 up to 1024; operands that are not contiguous or
+16-byte aligned are copied first).  CPU: ``cuda_norm.add_layer_norm_plain``,
+the chain of PyTorch calls that the kernel replaces: the sum in ``a``'s
+dtype, ``F.layer_norm`` in f32, a cast back.  It has no autograd formula:
+``LayerNorm`` calls it only where autograd records nothing.
+
 The CUDA implementations run in the host spans ``msda.fwd`` and
 ``msda.bwd`` (``utils.profile.annotate``; recorded only while a profiler
 runs, and never a device span): the op's own host work, its input checks,
@@ -61,10 +75,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.profile import annotate
-from . import stream
+from . import cuda_norm, stream
 from .reference import native_msda_backward, native_multiscale_deformable_attention
 
-__all__ = ["msda_fwd", "msda_bwd", "flat_shapes"]
+__all__ = ["msda_fwd", "msda_bwd", "add_layer_norm", "flat_shapes"]
 
 NAMESPACE = "msda_tpu_torch"
 
@@ -76,6 +90,9 @@ _LIB.define(
     "msda_bwd(Tensor img, Tensor sampling_points, Tensor attention_weights, "
     "Tensor out_grad, int[] level_shapes, str padding_mode, "
     "bool align_corners) -> (Tensor, Tensor, Tensor)")
+_LIB.define(
+    "add_layer_norm(Tensor a, Tensor b, Tensor weight, Tensor bias, "
+    "float eps) -> Tensor")
 
 
 def flat_shapes(shapes) -> list[int]:
@@ -135,10 +152,23 @@ def _bwd_cpu(img, sampling_points, attention_weights, out_grad,
     return tuple(g.contiguous() for g in grads)
 
 
+def _dense(t):
+    """``t`` as the kernel takes it: contiguous and 16-byte aligned."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _add_norm_cuda(a, b, weight, bias, eps):
+    return cuda_norm.add_layer_norm(_dense(a), _dense(b), _dense(weight),
+                                    _dense(bias), eps)
+
+
 _LIB.impl("msda_fwd", _fwd_cuda, "CUDA")
 _LIB.impl("msda_bwd", _bwd_cuda, "CUDA")
 _LIB.impl("msda_fwd", _fwd_cpu, "CPU")
 _LIB.impl("msda_bwd", _bwd_cpu, "CPU")
+_LIB.impl("add_layer_norm", _add_norm_cuda, "CUDA")
+_LIB.impl("add_layer_norm", cuda_norm.add_layer_norm_plain, "CPU")
 
 
 @torch.library.register_fake(f"{NAMESPACE}::msda_fwd", lib=_LIB)
@@ -154,6 +184,11 @@ def _bwd_fake(img, sampling_points, attention_weights, out_grad,
     return (img.new_empty(img.shape),
             sampling_points.new_empty(sampling_points.shape),
             attention_weights.new_empty(attention_weights.shape))
+
+
+@torch.library.register_fake(f"{NAMESPACE}::add_layer_norm", lib=_LIB)
+def _add_norm_fake(a, b, weight, bias, eps):
+    return a.new_empty(a.shape)
 
 
 class _MSDA(torch.autograd.Function):
@@ -184,3 +219,4 @@ _LIB.impl("msda_fwd", _MSDA.apply, "Autograd")
 
 msda_fwd = torch.ops.msda_tpu_torch.msda_fwd
 msda_bwd = torch.ops.msda_tpu_torch.msda_bwd
+add_layer_norm = torch.ops.msda_tpu_torch.add_layer_norm

@@ -28,6 +28,13 @@ registers the operators and builds the kernels at their first call.  It
 needs nothing else of the package: not the model classes, nor the code
 that built the artifact.
 
+:func:`export_fn` traces under ``torch.no_grad()``, whatever the caller's
+grad mode: an artifact is for serving, so it records what an inference call
+runs.  A half-type detector's residual add + LayerNorm is then the operator
+``torch.ops.msda_tpu_torch.add_layer_norm`` (its fused kernel), as in the
+live model under ``inference_mode``, and not the four-call chain that a
+call autograd records takes (``models/detr.py``'s ``LayerNorm``).
+
 The JAX module's ``platforms=`` and ``ignore_forward_compatibility=`` have
 no counterpart: they choose the platforms a StableHLO artifact is lowered
 for and work around a Mosaic lowering fault.  An ``ExportedProgram`` runs
@@ -84,11 +91,13 @@ def export_fn(fn, *example_args) -> bytes:
     the program is specialized to their shapes, dtypes and device.  A
     module's parameters and buffers are exported as its state; tensors that
     a function reaches through its closure (a model's parameters, say)
-    become constants of the artifact.  Returns the bytes of
-    ``torch.export.save``.
+    become constants of the artifact.  The trace runs under
+    ``torch.no_grad()``, so that the program is the one an inference call
+    runs.  Returns the bytes of ``torch.export.save``.
     """
     module = fn if isinstance(fn, nn.Module) else _Function(fn)
-    program = torch.export.export(module, tuple(example_args))
+    with torch.no_grad():
+        program = torch.export.export(module, tuple(example_args))
     buffer = io.BytesIO()
     torch.export.save(program, buffer)
     return buffer.getvalue()

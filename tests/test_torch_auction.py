@@ -237,7 +237,7 @@ def test_launch_counts_take_the_replays_counts(monkeypatch):
     counts = launches.counts()
     assert set(counts) == {"msda_fwd", "msda_bwd", "msda_auction",
                            "msda_stream_bin", "msda_stream_fwd",
-                           "msda_stream_bwd"}
+                           "msda_stream_bwd", "msda_norm"}
     monkeypatch.setattr(cuda_fwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_bwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_matcher, "LAUNCHES", 0)
