@@ -104,6 +104,25 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    ``scheduler.step()`` counted (``set_sync_debug_mode("warn")``); the
    reserved growth over the captures below that of three separate steps,
    a pool each.
+5d. Two-stage Deformable DETR as published (``two_stage="published"``),
+   which matches its targets over every encoder token:
+   a. the auction's large-N path (``cuda_auction_large``: transpose,
+      select, compaction, then the auction kernel on the smaller problem)
+      against ``matcher.plain_auction`` over the whole cost, on the same
+      card tensors, at (B, N, M) = (2, 22223, 50) (800x1333 at batch 2)
+      and (1, 88750, 50) (1600x2666, where the select kernel reads a
+      target's costs from the L2 on each pass): masked (5-9 of the target
+      slots real), masked with quantised costs (ties) and uniform costs
+      (all 50 real); ``query_idx`` and ``converged`` equal, every case
+      converged, ``auction_assignment`` routing each to the path (one call,
+      and no launch of the shared-memory path); each case's time beside
+      the plain loop's and the bound (the cost read once);
+   b. the published form's graphed step, f32, batch 2 at 800x1333, AdamW
+      (capturable), phase 5's batch: a warm-up, the capture and its
+      replay, then replays; each step must launch K1 12 times, K2 12
+      times, the auction kernel 6 times (the decoder's heads) and the
+      large-N path once (the proposals), read from that run's counters;
+      the matchings converged, the losses finite and falling.
 6. Timing: K1 and K2 against their plain versions, in turns, each beside
    its bound (``utils.bench.msda_bound``: the least time the card could
    take, from the bytes the call must move and the operations it must do,
@@ -234,9 +253,9 @@ from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_norm, cuda_strea
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
-from msda_tpu_torch.parallel import cuda_matcher, detection_loss, make_mesh, make_train_step, shard_params  # noqa: E402
+from msda_tpu_torch.parallel import cuda_auction_large, cuda_matcher, detection_loss, make_mesh, make_train_step, shard_params  # noqa: E402
 from msda_tpu_torch.parallel import train as train_module  # noqa: E402
-from msda_tpu_torch.parallel.matcher import plain_auction  # noqa: E402
+from msda_tpu_torch.parallel.matcher import auction_assignment, plain_auction  # noqa: E402
 from msda_tpu_torch.ops.launches import counts as launches  # noqa: E402
 from msda_tpu_torch.ops.launches import reset as reset_launches  # noqa: E402
 from msda_tpu_torch.utils import graphs as graphs_module  # noqa: E402
@@ -327,6 +346,11 @@ KERNELS = {  # name: (module, source, TPU kernel(s) it replaces)
     cuda_norm.KERNEL: (cuda_norm, "msda_tpu_torch/csrc/msda_norm.cu",
                        "none: XLA's fusion of nn.LayerNorm()(x + y), "
                        "msda_tpu/models/detr.py:80"),
+    # the auction past MAX_SLOTS: a transpose, a select, a compaction, then
+    # the auction kernel on the smaller problem (one call, four launches)
+    cuda_auction_large.KERNEL: (
+        cuda_auction_large, "msda_tpu_torch/csrc/msda_auction.cu",
+        "none: the JAX loss assigns by nearest anchor"),
 }
 LIBRARIES = (cuda_fwd.KERNEL, cuda_bwd.KERNEL, cuda_stream.LIBRARY,
              cuda_matcher.KERNEL, cuda_norm.KERNEL)
@@ -1773,6 +1797,137 @@ def train_shapes(smi: str) -> dict:
     return counts
 
 
+# Phase 5d: the auction's large-N path against the plain auction over the
+# whole cost, and the published two-stage form's graphed step
+LARGE_AUCTION_SHAPES = ((2, 22_223, 50), (1, 88_750, 50))
+
+
+def large_auction_cases() -> list:
+    """Phase 5d a's cases: ``(name, cost [B, N, M] f32, active [B, M] bool
+    or None)`` on the card."""
+    rng = np.random.default_rng(51)
+    cases = []
+    for shape in LARGE_AUCTION_SHAPES:
+        B, _, M = shape
+        uniform = rng.random(shape, dtype=np.float32)
+        mask = np.zeros((B, M), bool)
+        for b in range(B):
+            mask[b, :rng.integers(5, 10)] = True  # as phase 5's targets
+        for kind, cost, active in (
+                # masked-out slots cost 0 everywhere, as in detection_loss
+                ("masked", np.where(mask[:, None, :], uniform, 0), mask),
+                ("masked ties", np.where(mask[:, None, :],
+                                         np.floor(uniform * 4), 0), mask),
+                ("uniform", uniform, None)):
+            cases.append((f"{kind} {shape}", cost, active))
+    return [(name, torch.as_tensor(cost, dtype=torch.float32,
+                                   device=DEVICE).contiguous(),
+             None if active is None else torch.as_tensor(active,
+                                                         device=DEVICE))
+            for name, cost, active in cases]
+
+
+def check_large_auction(smi: str) -> dict:
+    """Phase 5d a: the large-N path against ``plain_auction`` over the whole
+    cost in every case, indices and flags equal, every case converged and
+    routed to the path by ``auction_assignment``; each case timed beside
+    the plain loop and the bound.  Returns the JSON row's numbers, from
+    the first case (the proposal matching's shape at 800x1333)."""
+    worst, row = 0, None
+    for name, cost, active in large_auction_cases():
+        q, conv, taken = cuda_auction_large.auction(cost, active,
+                                                    AUCTION_EPS, 2000)
+        want_q, want_conv = plain_auction(cost, active, AUCTION_EPS, 2000)
+        before = launches()
+        routed_q, routed_conv = auction_assignment(
+            cost, active, AUCTION_EPS, 2000, return_state=True)
+        routed = {k: launches()[k] - before[k]
+                  for k in (cuda_matcher.KERNEL, cuda_auction_large.KERNEL)}
+        same = (torch.equal(q, want_q) and torch.equal(conv, want_conv)
+                and torch.equal(routed_q, want_q)
+                and torch.equal(routed_conv, want_conv))
+        ms = time_ms(lambda: cuda_auction_large.auction(  # noqa: B023
+            cost, active, AUCTION_EPS, 2000), 20)
+        plain_ms = time_ms(lambda: plain_auction(  # noqa: B023
+            cost, active, AUCTION_EPS, 2000), 2)
+        B, N, M = cost.shape
+        nbytes = B * N * M * 4  # each cost read once
+        bound_ms, bound_by = roofline_ms(nbytes, 0.0)
+        taken = taken.tolist()
+        log(f"large auction {name}: {'equal' if same else 'DIFFER'}, "
+            f"converged {sum(conv.tolist())}/{B}, rounds {min(taken)}-"
+            f"{max(taken)}; routed {routed}; path {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3e} ms by {bound_by} on "
+            f"{smi}")
+        if not same:
+            raise AssertionError(f"large auction {name}: the path's "
+                                 "query_idx or converged differ from the "
+                                 "plain loop's")
+        if not conv.all():
+            raise AssertionError(f"large auction {name}: not converged")
+        if routed != {cuda_matcher.KERNEL: 0, cuda_auction_large.KERNEL: 1}:
+            raise AssertionError(f"large auction {name}: auction_assignment "
+                                 f"launched {routed}, expected the large-N "
+                                 "path once")
+        worst = max(worst, (q - want_q).abs().max().item())
+        if row is None:
+            row = {"ms": ms, "plain_ms": plain_ms,
+                   "bound": {"ms": bound_ms, "bound_by": bound_by}}
+    log(f"large auction: every case equal to the plain loop; the "
+        f"proposal matching's call {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound']['ms']:.3e} ms)")
+    return {**row, "err": float(worst)}
+
+
+def published_path(smi: str) -> dict:
+    """Phase 5d: the large-N path against the plain auction (a), then the
+    published two-stage form's graphed step (b).  Returns the path's JSON
+    numbers, every kernel's launches over the steps and in one step."""
+    row = check_large_auction(smi)
+    reset_launches()
+    pyramid, targets = make_pyramid(30), make_targets(31)
+    model = DeformableDetr(**MODEL, two_stage="published", device=DEVICE)
+    model = init_parameters(model, torch.Generator().manual_seed(0)).train()
+    optimizer = adamw(model)
+    step = make_train_step(model, optimizer, SLICE_SHAPES,
+                           return_metrics=True, **LOSS_KW)
+    want = {cuda_fwd.KERNEL: LAUNCHES_PER_FORWARD,
+            cuda_bwd.KERNEL: LAUNCHES_PER_FORWARD,
+            cuda_matcher.KERNEL: AUCTIONS_PER_STEP,
+            cuda_auction_large.KERNEL: 1}
+    losses, times, per_step = [], [], None
+    for i in range(1 + TRAIN_STEPS):
+        before = launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, metrics = step(pyramid, targets)
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: n - before[k] for k, n in launches().items()}
+        per_step = per_step or counts
+        losses.append(loss.item())
+        times.append(start.elapsed_time(end))
+        converged = bool(metrics["matcher_converged"])
+        what = ("warm-up", "capture + replay")[i] if i < 2 else "replay"
+        log(f"published step {i} ({what}): loss {losses[-1]:.6f} "
+            f"matcher_converged {converged} {times[-1]:.3f} ms, launches "
+            f"{counts}")
+        check_path_launches(f"published step {i}", counts, want)
+        if not converged or not np.isfinite(losses[-1]):
+            raise AssertionError(f"published step {i}: matcher_converged "
+                                 f"{converged}, loss {losses[-1]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"published: the loss did not fall on a "
+                             f"repeated batch: {losses}")
+    counts = launches()
+    log(f"published: batch {BATCH} at {IMAGE_HW[0]}x{IMAGE_HW[1]}, mean "
+        f"replayed step {sum(times[2:]) / len(times[2:]):.3f} ms, "
+        f"launches {counts}; per step {per_step} on {smi}")
+    del model, optimizer, step
+    return {"auction": row, "counts": counts, "per_step": per_step}
+
+
 def time_ms(fn, iters: int) -> float:
     for _ in range(2):
         fn()
@@ -2872,7 +3027,8 @@ def headline_lines(smi: str) -> dict:
               for text in run.stderr.splitlines()
               if text.startswith("launches ")]
     # the op's kernels: the headline process runs the op alone
-    op_kernels = set(launches()) - {cuda_matcher.KERNEL, cuda_norm.KERNEL}
+    op_kernels = set(launches()) - {cuda_matcher.KERNEL, cuda_norm.KERNEL,
+                                    cuda_auction_large.KERNEL}
     if len(counts) != 1 or set(counts[0]) != op_kernels:
         raise AssertionError(f"headline: launch counts {counts}, expected "
                              f"one line with the keys {sorted(op_kernels)}")
@@ -2899,8 +3055,10 @@ def main() -> None:
     trained, per_train_step = train(smi)
     step_graphs = graph_path(smi)
     trained_shapes = train_shapes(smi)
+    published = published_path(smi)
     by_path = {"serve": served, "serve_shapes": served_shapes,
                "train": trained, "train_shapes": trained_shapes,
+               "train_published": published["counts"],
                **large_pyramid_path(smi)}
     times = {cuda_fwd.KERNEL: time_kernel(smi),
              cuda_bwd.KERNEL: time_backward_kernel(smi)}
@@ -2923,6 +3081,8 @@ def main() -> None:
     by_path["headline"] = headline_lines(smi)
     auction = step_graphs["auction"]
     errs[cuda_matcher.KERNEL] = auction["err"]
+    large = published["auction"]
+    errs[cuda_auction_large.KERNEL] = large["err"]
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         if name in times:  # K1, K2: the encoder shape, f32
@@ -2930,6 +3090,8 @@ def main() -> None:
         elif name == cuda_matcher.KERNEL:  # a step's first head's costs
             ms, plain_ms, b = auction["ms"], auction["plain_ms"], (
                 auction["bound"])
+        elif name == cuda_auction_large.KERNEL:  # (2, 22223, 50), masked
+            ms, plain_ms, b = large["ms"], large["plain_ms"], large["bound"]
         elif name == cuda_norm.KERNEL:  # the 800x1333 encoder call, bf16
             ms, plain_ms, b = norm["ms"], norm["plain_ms"], norm["bound"]
         else:  # the streamed kernels: the 256-base pyramid, f32
@@ -2946,6 +3108,7 @@ def main() -> None:
             "launches": sum(paths.values()),
             "launches_by_path": paths,
             "launches_per_train_step": per_train_step[name],
+            "launches_per_published_step": published["per_step"][name],
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -2960,6 +3123,11 @@ def main() -> None:
             kernels[-1]["limited_by"] = (
                 "latency: rounds x one round's scans, shuffles and "
                 "barriers, a block an image")
+        if name == cuda_auction_large.KERNEL:
+            kernels[-1]["limited_by"] = (
+                "latency: the select kernel's radix passes over a target's "
+                "costs, a block a target and image; then the auction's "
+                "rounds")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -18,7 +18,8 @@
 // node of about a microsecond.
 //
 // The names, in the order of their index (utils/profile.py DEVICE_SPANS):
-// encoder, decoder, postprocess, loss, backward, optimizer.
+// encoder, decoder, postprocess, loss, backward, optimizer, proposals,
+// proposal_loss (the last two nested in decoder and loss).
 //
 // Interface: plain C entry points, loaded with ctypes by utils/profile.py.
 // msda_span_launch(span, edge, stream) launches one marker on the given
@@ -38,6 +39,8 @@ struct postprocess {};
 struct loss {};
 struct backward {};
 struct optimizer {};
+struct proposals {};
+struct proposal_loss {};
 
 struct begin {};
 struct end {};
@@ -56,8 +59,9 @@ struct Span {
 // same token as its markers' template argument.
 #define MSDA_SPAN(Name) {{msda_span<Name, begin>, msda_span<Name, end>}, #Name}
 const Span kMarkers[] = {
-    MSDA_SPAN(encoder), MSDA_SPAN(decoder), MSDA_SPAN(postprocess),
-    MSDA_SPAN(loss),    MSDA_SPAN(backward), MSDA_SPAN(optimizer),
+    MSDA_SPAN(encoder),   MSDA_SPAN(decoder),       MSDA_SPAN(postprocess),
+    MSDA_SPAN(loss),      MSDA_SPAN(backward),      MSDA_SPAN(optimizer),
+    MSDA_SPAN(proposals), MSDA_SPAN(proposal_loss),
 };
 #undef MSDA_SPAN
 

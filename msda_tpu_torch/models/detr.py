@@ -3,11 +3,13 @@
 The counterpart of ``msda_tpu/models/detr.py``: a deformable encoder over
 the flattened feature pyramid, a decoder with learned queries, and detection
 heads, the architecture of arXiv:2010.04159 §4 with both paper variants
-(iterative box refinement and two-stage).  ``postprocess`` decodes the
-outputs into ranked detections.  Parameters are made with PyTorch's default
-initialisation; :func:`init_parameters` re-draws them from a
-``torch.Generator``, and ``models.convert.state_dict_from_flax`` loads the
-JAX model's parameters.
+(iterative box refinement and two-stage), and, beside the JAX package's
+static-shape two-stage form, the two-stage form as published
+(``two_stage="published"``: ``DeformableDetr``'s docstring).
+``postprocess`` decodes the outputs into ranked detections.  Parameters
+are made with PyTorch's default initialisation; :func:`init_parameters`
+re-draws them from a ``torch.Generator``, and
+``models.convert.state_dict_from_flax`` loads the JAX model's parameters.
 
 ``remat=True`` recomputes each encoder and decoder layer in the backward
 instead of keeping its activations (``torch.utils.checkpoint``, the
@@ -37,6 +39,8 @@ from .attention import Dense, MultiscaleDeformableAttention, device_constant
 __all__ = [
     "make_encoder_reference_points",
     "make_proposal_anchors",
+    "make_proposal_logits",
+    "proposal_pos_embed",
     "LayerNorm",
     "MultiHeadSelfAttention",
     "DeformableEncoderLayer",
@@ -65,12 +69,52 @@ def make_proposal_anchors(img_shapes, base_scale: float = 0.05,
     size of ``base_scale * 2^level`` (Deformable DETR §A.4).  Normalized
     cxcywh, f32.
     """
+    return _on_device(_anchors(img_shapes, base_scale, 0.9), device)
+
+
+def _anchors(img_shapes, base_scale: float, max_side: float) -> np.ndarray:
+    """Every pyramid pixel's anchor box, cxcywh: its centre, and sides of
+    ``base_scale * 2^level`` up to ``max_side``.  [I, 4], f64."""
     anchors = []
     for lvl, (h, w) in enumerate(level_shapes(img_shapes)):
         xs, ys = _pixel_centers(h, w)
-        wh = np.full_like(xs, min(base_scale * (2 ** lvl), 0.9))
+        wh = np.full_like(xs, min(base_scale * (2 ** lvl), max_side))
         anchors.append(np.stack([xs, ys, wh, wh], axis=-1).reshape(-1, 4))
-    return _on_device(np.concatenate(anchors, axis=0), device)
+    return np.concatenate(anchors, axis=0)
+
+
+def make_proposal_logits(img_shapes, device=None) -> torch.Tensor:
+    """The published two-stage proposals' anchors in logit space: [I, 4].
+
+    Each pyramid pixel anchors a box at its centre, of side ``0.05 *
+    2^level`` (the official ``gen_encoder_output_proposals``), as
+    ``log(p / (1 - p))``, and ``+inf`` in all four where any coordinate
+    lies outside (0.01, 0.99): such a proposal's box is 1 whatever its
+    head says, and its token enters the proposal heads as zeros.  f32.
+    """
+    anchors = _anchors(img_shapes, 0.05, np.inf)
+    valid = ((anchors > 0.01) & (anchors < 0.99)).all(-1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        logits = np.log(anchors / (1.0 - anchors))
+    return _on_device(np.where(valid, logits, np.inf), device)
+
+
+def proposal_pos_embed(proposals: torch.Tensor, width: int) -> torch.Tensor:
+    """The published two-stage decoder's positional embedding of its
+    proposals (the official ``get_proposal_pos_embed``): ``proposals`` [...,
+    4] in logit space, ``width`` a multiple of 8.  Each coordinate's
+    sigmoid, times 2 pi, over ``10000^(2 floor(i / 2) / F)`` for i < F =
+    ``width / 4``, the sine of the even i and the cosine of the odd i,
+    interleaved: [..., width], f32.
+    """
+    feats = width // 4
+    dim_t = torch.arange(feats, dtype=torch.float32, device=proposals.device)
+    dim_t = 10000.0 ** (2 * torch.div(dim_t, 2, rounding_mode="floor")
+                        / feats)
+    pos = proposals.float().sigmoid() * (2 * math.pi)
+    pos = pos[..., None] / dim_t  # [..., 4, F]
+    pos = torch.stack((pos[..., 0::2].sin(), pos[..., 1::2].cos()), dim=-1)
+    return pos.flatten(-3)
 
 
 def make_encoder_reference_points(img_shapes, device=None) -> torch.Tensor:
@@ -162,6 +206,8 @@ class MultiHeadSelfAttention(nn.Module):
     computes it: per-head query/key/value projections, scores scaled by
     ``1/sqrt(head_dim)``, a softmax over keys (in f32), no mask, no dropout,
     and an output projection.  Explicit matmuls, no fused attention kernel.
+    With ``query_pos`` (the published two-stage form), queries and keys
+    are projected from ``x + query_pos`` and values from ``x``.
     """
 
     def __init__(self, dim: int, num_heads: int, compute_dtype=None,
@@ -176,7 +222,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.value = Dense(dim, dim, compute_dtype, device)
         self.out = Dense(dim, dim, compute_dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                query_pos: torch.Tensor | None = None) -> torch.Tensor:
         B, N, D = x.shape
         H = self.num_heads
         Dh = D // H
@@ -184,8 +231,9 @@ class MultiHeadSelfAttention(nn.Module):
         def heads(t):  # [B, N, D] -> [B, H, N, Dh]
             return t.reshape(B, N, H, Dh).transpose(1, 2)
 
-        q = heads(self.query(x)) / math.sqrt(Dh)
-        k = heads(self.key(x))
+        qk = x if query_pos is None else x + query_pos
+        q = heads(self.query(qk)) / math.sqrt(Dh)
+        k = heads(self.key(qk))
         v = heads(self.value(x))
         scores = torch.matmul(q, k.transpose(-1, -2))  # [B, H, N, N]
         weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
@@ -239,10 +287,15 @@ class DeformableDecoderLayer(nn.Module):
         self.norm_1 = LayerNorm(emb_dim, compute_dtype, device)
         self.ffn = _FFN(emb_dim, ffn_dim, compute_dtype, device)
 
-    def forward(self, queries, feats, img_shapes, reference_points):
-        """queries [B, N, D]; feats [B, I, D]; reference_points [B, N, 2|4]."""
-        x = self.norm_0(queries, self.self_attn(queries))
-        y = self.msda(feats, img_shapes, x, reference_points)
+    def forward(self, queries, feats, img_shapes, reference_points,
+                query_pos=None):
+        """queries [B, N, D]; feats [B, I, D]; reference_points [B, N, 2|4];
+        query_pos None or [B, N, D] (the published two-stage form's: added
+        to the queries that attend, never to the residual)."""
+        x = self.norm_0(queries, self.self_attn(queries, query_pos))
+        y = self.msda(feats, img_shapes,
+                      x if query_pos is None else x + query_pos,
+                      reference_points)
         x = self.norm_1(x, y)
         return self.ffn(x)
 
@@ -261,7 +314,28 @@ class DeformableDetr(nn.Module):
     * *two-stage* (``two_stage=True``): every encoder pixel emits a proposal
       (objectness + box on a per-level anchor) and the top ``num_queries``
       proposals seed the decoder's reference boxes and positional content,
-      with ``enc`` outputs for proposal supervision.
+      with ``enc`` outputs for proposal supervision: the JAX package's
+      static-shape form;
+    * *two-stage as published* (``two_stage="published"``; the official
+      ``two_stage`` branch of ``DeformableTransformer.forward``, arXiv:
+      2010.04159 §4.2 and App. A.4), in the span ``proposals`` inside
+      ``decoder``: every encoder token, zeroed where its anchor
+      (:func:`make_proposal_logits`) is invalid, is projected by
+      ``enc_output`` (D to D) and ``enc_output_norm``; a class head
+      (``enc_class_head``, K logits) and a box head (``enc_box_head``, 4
+      deltas added to the anchor's logits) run over every token; the
+      ``num_queries`` tokens of the highest logit 0 are chosen; their
+      detached box logits, through :func:`proposal_pos_embed` (2D wide),
+      ``pos_trans`` (2D to 2D) and ``pos_trans_norm``, are split into each
+      decoder layer's ``query_pos`` (the first D) and the decoder's content
+      queries (the second D), and their sigmoids are the first reference
+      boxes.  There is no learned query embedding or reference box.  The
+      ``enc`` outputs are ``{"logits": [B, I, K], "boxes": [B, I, 4],
+      "top_idx": [B, num_queries]}``, the loss's
+      (``parallel.detection_loss``) proposal term.  With box refinement
+      the encoder's heads are a seventh class and box head beside the
+      decoder's six; without it, heads of their own beside the decoder's
+      one (the official shares the decoder's there).
 
     ``in_channels`` gives ``C_l`` per level (its length is the number of
     levels).  ``compute_dtype=torch.bfloat16`` runs the transformer stack
@@ -284,7 +358,7 @@ class DeformableDetr(nn.Module):
         num_decoder_layers: int = 2,
         ffn_dim: int = 1024,
         with_box_refinement: bool = False,
-        two_stage: bool = False,
+        two_stage: bool | str = False,
         remat: bool = False,
         compute_dtype: torch.dtype | None = None,
         impl: str = "auto",
@@ -292,6 +366,9 @@ class DeformableDetr(nn.Module):
         mesh=None,
     ):
         super().__init__()
+        if two_stage not in (False, True, "published"):
+            raise ValueError(f"two_stage must be False, True or "
+                             f"'published', got {two_stage!r}")
         L = len(in_channels)
         self.num_classes = num_classes
         self.emb_dim = emb_dim
@@ -316,13 +393,21 @@ class DeformableDetr(nn.Module):
         self.encoder_layers = nn.ModuleList(
             DeformableEncoderLayer(**layer_args)
             for _ in range(num_encoder_layers))
-        self.query_embedding = nn.Parameter(
-            torch.zeros(num_queries, emb_dim, device=device))
-        if two_stage:
+        if two_stage == "published":
+            self.enc_output = Dense(emb_dim, emb_dim, cd, device)
+            self.enc_output_norm = LayerNorm(emb_dim, cd, device)
+            self.enc_class_head = Dense(emb_dim, num_classes, device=device)
+            self.enc_box_head = Dense(emb_dim, 4, device=device)
+            self.pos_trans = Dense(2 * emb_dim, 2 * emb_dim, cd, device)
+            self.pos_trans_norm = LayerNorm(2 * emb_dim, cd, device)
+        else:
+            self.query_embedding = nn.Parameter(
+                torch.zeros(num_queries, emb_dim, device=device))
+        if two_stage is True:
             self.enc_objectness = Dense(emb_dim, 1, device=device)
             self.enc_box_head = Dense(emb_dim, 4, device=device)
             self.proposal_pos_proj = Dense(4, emb_dim, cd, device)
-        else:
+        elif not two_stage:
             self.reference_box_logits = nn.Parameter(
                 torch.zeros(num_queries, 4, device=device))
         self.decoder_layers = nn.ModuleList(
@@ -358,7 +443,12 @@ class DeformableDetr(nn.Module):
         with annotate("encoder"):
             feats = self._encode(pyramid, shapes, run)
         with annotate("decoder"):
-            return self._decode(feats, shapes, run)
+            if self.two_stage == "published":
+                with annotate("proposals"):
+                    start = self._proposals(feats, shapes)
+            else:
+                start = self._queries(feats, shapes)
+            return self._decode(feats, shapes, run, *start)
 
     def _encode(self, pyramid, shapes, run):
         """The input projections and the encoder layers: [B, I, D]."""
@@ -379,42 +469,72 @@ class DeformableDetr(nn.Module):
             feats = run(layer, feats, shapes, enc_refs)
         return feats
 
-    def _decode(self, feats, shapes, run):
-        """The proposals (two-stage), the decoder layers and the heads."""
+    def _queries(self, feats, shapes):
+        """The decoder's first queries and reference boxes: learned, or
+        from the proposals of the JAX package's two-stage form.  Returns
+        ``(queries, query_pos None, refs, enc outputs or None)``."""
         B = feats.shape[0]
         queries = self.query_embedding[None].expand(B, -1, -1)
         if self.compute_dtype is not None:
             queries = queries.to(self.compute_dtype)
-
-        enc_out = None
-        if self.two_stage:
-            # every encoder pixel emits a proposal; the top num_queries seed
-            # the decoder's reference boxes and positional content
-            anchors = device_constant(
-                self._constants, ("proposal_anchors", shapes),
-                lambda device: make_proposal_anchors(shapes, device=device),
-                feats)[None]
-            enc_obj = self.enc_objectness(feats)[..., 0]
-            enc_delta = self.enc_box_head(feats)
-            enc_boxes = torch.sigmoid(_inv_sigmoid(anchors) + enc_delta)
-            top_idx = torch.topk(enc_obj, self.num_queries, dim=1).indices
-            refs = torch.gather(
-                enc_boxes, 1, top_idx[..., None].expand(-1, -1, 4)
-            )  # [B, Nq, 4]
-            enc_out = {
-                "logits": enc_obj[..., None],
-                "boxes": enc_boxes,
-                "anchors": anchors[0],
-            }
-            refs = refs.detach()
-            queries = queries + self.proposal_pos_proj(refs)
-        else:
+        if not self.two_stage:
             refs = torch.sigmoid(self.reference_box_logits)[None].expand(
                 B, -1, -1)
+            return queries, None, refs, None
+        # every encoder pixel emits a proposal; the top num_queries seed
+        # the decoder's reference boxes and positional content
+        anchors = device_constant(
+            self._constants, ("proposal_anchors", shapes),
+            lambda device: make_proposal_anchors(shapes, device=device),
+            feats)[None]
+        enc_obj = self.enc_objectness(feats)[..., 0]
+        enc_delta = self.enc_box_head(feats)
+        enc_boxes = torch.sigmoid(_inv_sigmoid(anchors) + enc_delta)
+        top_idx = torch.topk(enc_obj, self.num_queries, dim=1).indices
+        refs = torch.gather(
+            enc_boxes, 1, top_idx[..., None].expand(-1, -1, 4)
+        )  # [B, Nq, 4]
+        enc_out = {
+            "logits": enc_obj[..., None],
+            "boxes": enc_boxes,
+            "anchors": anchors[0],
+        }
+        refs = refs.detach()
+        queries = queries + self.proposal_pos_proj(refs)
+        return queries, None, refs, enc_out
 
+    def _proposals(self, feats, shapes):
+        """The published two-stage form's proposal stage (the class
+        docstring).  Returns ``(queries, query_pos, refs, enc outputs)``."""
+        D = self.emb_dim
+        logits = device_constant(
+            self._constants, ("proposal_logits", shapes),
+            lambda device: make_proposal_logits(shapes, device), feats)
+        valid = device_constant(
+            self._constants, ("proposal_valid", shapes),
+            lambda device: logits.isfinite().all(-1, keepdim=True),
+            feats)  # [I, 1]
+        memory = self.enc_output_norm(self.enc_output(
+            feats.masked_fill(~valid, 0.0)))
+        enc_logits = self.enc_class_head(memory)  # [B, I, K]
+        enc_unact = self.enc_box_head(memory) + logits  # +inf where invalid
+        top_idx = torch.topk(enc_logits[..., 0], self.num_queries,
+                             dim=1).indices  # [B, Nq]
+        top = torch.gather(enc_unact, 1, top_idx[..., None].expand(
+            -1, -1, 4)).detach()
+        pos = self.pos_trans_norm(self.pos_trans(proposal_pos_embed(
+            top, 2 * D)))
+        query_pos, queries = pos[..., :D], pos[..., D:]
+        enc_out = {"logits": enc_logits, "boxes": torch.sigmoid(enc_unact),
+                   "top_idx": top_idx}
+        return queries, query_pos, torch.sigmoid(top), enc_out
+
+    def _decode(self, feats, shapes, run, queries, query_pos, refs, enc_out):
+        """The decoder layers, the box refinement and the heads."""
+        extra = () if query_pos is None else (query_pos,)
         aux = []
         for i, layer in enumerate(self.decoder_layers):
-            queries = run(layer, queries, feats, shapes, refs)
+            queries = run(layer, queries, feats, shapes, refs, *extra)
             if i < len(self.box_refine):
                 # refs are detached between layers, as in the paper
                 refined = torch.sigmoid(
@@ -460,7 +580,9 @@ def init_parameters(module: nn.Module,
     * box-refinement heads zero (refinement starts as the identity) and the
       class heads' bias at the focal-loss prior -log(99);
     * level and query embeddings normal(0.02), reference-box logits
-      normal(0.5), as the JAX model draws them.
+      normal(0.5), as the JAX model draws them;
+    * in the published two-stage form, the encoder's box head zero and its
+      class head's bias at the prior, as the decoder's.
 
     With these weights the sampling positions do not depend on the
     features, so a full-width model is well conditioned: on an H100, a
@@ -493,13 +615,17 @@ def init_parameters(module: nn.Module,
             bias[..., 2] = 0.0
         elif isinstance(m, DeformableDetr):
             normal(m.level_embedding, 0.02)
-            normal(m.query_embedding, 0.02)
+            published = m.two_stage == "published"
+            if not published:
+                normal(m.query_embedding, 0.02)
             if not m.two_stage:
                 normal(m.reference_box_logits, 0.5)
-            for head in m.box_refine:
+            enc = [m.enc_box_head] if published else []
+            for head in [*m.box_refine, *enc]:
                 head.weight.zero_()
+            enc = [m.enc_class_head] if published else []
             prior = -math.log((1 - 0.01) / 0.01)
-            for head in [m.class_head, *m.aux_class]:
+            for head in [m.class_head, *m.aux_class, *enc]:
                 head.bias.fill_(prior)
     return module
 

@@ -23,7 +23,8 @@ import torch
 
 from ..ops import _build, launches
 
-__all__ = ["KERNEL", "LAUNCHES", "MAX_SLOTS", "auction", "load"]
+__all__ = ["KERNEL", "LAUNCHES", "MAX_SLOTS", "auction",
+           "check_inputs", "load", "no_targets"]
 
 KERNEL = "msda_auction"
 # queries + targets at most: their per-slot state (16 bytes each) must fit
@@ -37,13 +38,58 @@ launches.register(__name__)
 
 
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; set its signature."""
+    """Build (if needed) and load the kernel library; set the signatures
+    of its entry points (this kernel's, and the large-N path's of
+    ``cuda_auction_large``)."""
     lib = _build.load_library(KERNEL)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.msda_auction_launch.argtypes = [vp, vp, ci, ci, ci, ctypes.c_float,
-                                        ci, vp, vp, vp, vp]
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.msda_auction_launch.argtypes = [vp, vp, ci, ci, ci, cf, ci, vp, vp,
+                                        vp, vp]
     lib.msda_auction_launch.restype = ci
+    lib.msda_auction_large_launch.argtypes = [vp, vp, ci, ci, ci, cf, ci,
+                                              *[vp] * 10]
+    lib.msda_auction_large_launch.restype = ci
     return lib
+
+
+def check_inputs(cost: torch.Tensor, active: torch.Tensor | None, eps,
+                 max_rounds) -> tuple[float, int]:
+    """Raise ``ValueError`` unless ``cost`` is ``[B, N, M]`` f32 (N >= M),
+    contiguous, on a CUDA device, ``active`` None or ``[B, M]`` bool,
+    contiguous, on its device, and ``max_rounds`` a 32-bit int; return
+    ``eps`` and ``max_rounds`` as a launch takes them."""
+    if not cost.is_cuda:
+        raise ValueError(f"the CUDA auction kernel needs a CUDA cost, got "
+                         f"one on {cost.device}")
+    if cost.dtype != torch.float32 or cost.ndim != 3:
+        raise ValueError(f"cost must be [B, N, M] f32, got "
+                         f"{tuple(cost.shape)} {cost.dtype}")
+    if not cost.is_contiguous():
+        raise ValueError("cost must be contiguous")
+    B, N, M = cost.shape
+    if M > N:
+        raise ValueError(f"more targets ({M}) than queries ({N})")
+    if active is not None:
+        if (active.dtype != torch.bool or tuple(active.shape) != (B, M)
+                or active.device != cost.device
+                or not active.is_contiguous()):
+            raise ValueError(
+                f"active must be a contiguous [B, M] = {(B, M)} bool tensor "
+                f"on {cost.device}, got {tuple(active.shape)} "
+                f"{active.dtype} on {active.device}")
+    max_rounds = int(max_rounds)
+    if not -_INT32_MAX <= max_rounds <= _INT32_MAX:
+        raise ValueError(f"max_rounds out of range: {max_rounds}")
+    return float(eps), max_rounds
+
+
+def no_targets(cost: torch.Tensor):
+    """What the auction returns without a target: nothing to bid for, as
+    in the JAX loop."""
+    B, _, M = cost.shape
+    return (torch.zeros((B, M), dtype=torch.int64, device=cost.device),
+            torch.ones((B,), dtype=torch.bool, device=cost.device),
+            torch.zeros((B,), dtype=torch.int32, device=cost.device))
 
 
 def auction(cost: torch.Tensor, active: torch.Tensor | None = None,
@@ -59,37 +105,14 @@ def auction(cost: torch.Tensor, active: torch.Tensor | None = None,
     when the build or the launch fails.
     """
     global LAUNCHES
-    if not cost.is_cuda:
-        raise ValueError(f"the CUDA auction kernel needs a CUDA cost, got "
-                         f"one on {cost.device}")
-    if cost.dtype != torch.float32 or cost.ndim != 3:
-        raise ValueError(f"cost must be [B, N, M] f32, got "
-                         f"{tuple(cost.shape)} {cost.dtype}")
-    if not cost.is_contiguous():
-        raise ValueError("cost must be contiguous")
+    eps, max_rounds = check_inputs(cost, active, eps, max_rounds)
     B, N, M = cost.shape
-    if M > N:
-        raise ValueError(f"more targets ({M}) than queries ({N})")
     if N + M > MAX_SLOTS or B * N * M > _INT32_MAX:
         raise ValueError(f"the kernel takes N + M <= {MAX_SLOTS} and "
-                         f"B * N * M < 2**31, got B, N, M = {B}, {N}, {M}")
-    if active is not None:
-        if (active.dtype != torch.bool or tuple(active.shape) != (B, M)
-                or active.device != cost.device
-                or not active.is_contiguous()):
-            raise ValueError(
-                f"active must be a contiguous [B, M] = {(B, M)} bool tensor "
-                f"on {cost.device}, got {tuple(active.shape)} "
-                f"{active.dtype} on {active.device}")
-    eps = float(eps)
-    max_rounds = int(max_rounds)
-    if not -_INT32_MAX <= max_rounds <= _INT32_MAX:
-        raise ValueError(f"max_rounds out of range: {max_rounds}")
-
-    if B * M == 0:  # no target: nothing to bid for, as in the JAX loop
-        return (torch.zeros((B, M), dtype=torch.int64, device=cost.device),
-                torch.ones((B,), dtype=torch.bool, device=cost.device),
-                torch.zeros((B,), dtype=torch.int32, device=cost.device))
+                         f"B * N * M < 2**31, got B, N, M = {B}, {N}, {M} "
+                         "(cuda_auction_large takes larger N)")
+    if B * M == 0:
+        return no_targets(cost)
     lib = load()
     query_idx = torch.empty((B, M), dtype=torch.int64, device=cost.device)
     converged = torch.empty((B,), dtype=torch.bool, device=cost.device)

@@ -21,13 +21,20 @@ card, and nothing is read back to the host.  On a CPU cost it runs the
 plain version, :func:`plain_auction`, a Python loop of rounds that tests
 convergence once per chunk of rounds (``_CHUNK``) and still stops at
 exactly ``max_rounds``.  Both give the same indices.
+
+Past ``cuda_matcher.MAX_SLOTS`` queries and targets (two-stage Deformable
+DETR matches over every encoder token), a CUDA cost takes the large-N path,
+``cuda_auction_large.auction``: the same auction over the union of each
+active target's A + 2 cheapest queries (A the image's active targets),
+which assigns exactly as the auction over all of them (the proof is in
+that module's note).  A CPU cost of any size runs :func:`plain_auction`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cuda_matcher
+from . import cuda_auction_large, cuda_matcher
 
 __all__ = ["auction_assignment", "matching_cost", "plain_auction"]
 
@@ -99,7 +106,9 @@ def auction_assignment(cost, target_mask=None, eps=1e-3, max_rounds=2000,
     cost = cost.detach().to(torch.float32)
     active = None if target_mask is None else target_mask.to(torch.bool)
     if cost.is_cuda:
-        out, converged, _ = cuda_matcher.auction(
+        large = sum(cost.shape[1:]) > cuda_matcher.MAX_SLOTS
+        kernel = cuda_auction_large if large else cuda_matcher
+        out, converged, _ = kernel.auction(
             cost.contiguous(),
             None if active is None else active.contiguous(), eps, max_rounds)
     else:

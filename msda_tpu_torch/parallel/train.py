@@ -5,7 +5,10 @@
 layer's prediction pays a classification loss (softmax CE with background,
 or sigmoid focal) plus 5 * L1 + 2 * GIoU on its matched boxes, with the
 auction matcher or a fixed teacher-forced matching, and the two-stage
-encoder proposals pay their own objectness + box loss.  ``make_train_step``
+encoder proposals pay their own loss: objectness + box in the JAX
+package's static-shape form, and in the published form
+(``DeformableDetr(two_stage="published")``) the decoder's loss over every
+encoder token with every target's class set to 0.  ``make_train_step``
 builds the step: forward, loss, backward, optimizer step.  On a card
 without a mesh the step is captured once as a CUDA graph and replayed, the
 counterpart of the JAX step's ``jax.jit``: one program a step, with no host
@@ -75,7 +78,10 @@ def detection_loss(outputs, targets, matcher: str = "fixed",
     ``outputs["aux"]`` (per-decoder-layer predictions of
     ``DeformableDetr(with_box_refinement=True)``) pay the same loss scaled
     by ``aux_weight``; ``outputs["enc"]`` (two-stage proposals) pay
-    :func:`_enc_proposal_loss` scaled by ``enc_weight``.
+    :func:`_enc_proposal_loss` scaled by ``enc_weight``, or, from the
+    published two-stage form (``enc`` with ``top_idx``),
+    :func:`_published_proposal_loss` so scaled, in the span
+    ``proposal_loss``.
 
     With ``return_metrics=True`` the call returns ``(loss, metrics)``, where
     ``metrics["matcher_converged"]`` is a bool tensor on the loss's device:
@@ -96,10 +102,19 @@ def detection_loss(outputs, targets, matcher: str = "fixed",
             l1_weight=l1_weight, matcher_rounds=matcher_rounds, group=group)
         loss = loss + aux_weight * aux_loss
         converged = converged & aux_conv
-    if "enc" in outputs:
+    enc = outputs.get("enc")
+    if enc is not None and "top_idx" in enc:
+        with annotate("proposal_loss"):
+            enc_loss, enc_conv = _published_proposal_loss(
+                enc, targets, matcher, giou_weight, class_loss, eos_coef,
+                l1_weight=l1_weight, matcher_rounds=matcher_rounds,
+                group=group)
+        loss = loss + enc_weight * enc_loss
+        converged = converged & enc_conv
+    elif enc is not None:
         loss = loss + enc_weight * _enc_proposal_loss(
-            outputs["enc"], targets, giou_weight=giou_weight,
-            l1_weight=l1_weight, group=group)
+            enc, targets, giou_weight=giou_weight, l1_weight=l1_weight,
+            group=group)
     if return_metrics:
         return loss, {"matcher_converged": converged}
     return loss
@@ -164,6 +179,24 @@ def _enc_proposal_loss(enc, targets, giou_weight=2.0, l1_weight=5.0,
         giou = generalized_box_iou(sel, tboxes)
         loss = loss + giou_weight * ((1.0 - giou) * mask).sum() / n_real
     return loss
+
+
+def _published_proposal_loss(enc, targets, matcher, giou_weight=2.0,
+                             class_loss="ce", eos_coef=0.1, l1_weight=5.0,
+                             matcher_rounds=2000, group=None):
+    """The published two-stage proposal loss (the official ``SetCriterion``'s
+    ``enc_outputs`` term): every target's label set to class 0, the
+    decoder's matching (``matcher``) over all I proposals, and the
+    decoder's loss on them: the class loss over all I x K logits, L1 and
+    GIoU on the matched proposals.  ``enc``: ``{"logits" [B, I, K],
+    "boxes" [B, I, 4]}``.  With the auction matcher, I + M past
+    ``cuda_matcher.MAX_SLOTS`` takes its large-N path.  Returns ``(loss,
+    converged)``."""
+    binary = dict(targets, labels=torch.zeros_like(targets["labels"]))
+    return _single_detection_loss(
+        {"logits": enc["logits"], "boxes": enc["boxes"]}, binary, matcher,
+        giou_weight, class_loss, eos_coef, l1_weight=l1_weight,
+        matcher_rounds=matcher_rounds, group=group)
 
 
 def _single_detection_loss(outputs, targets, matcher, giou_weight=2.0,

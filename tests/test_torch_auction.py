@@ -36,6 +36,7 @@ from msda_tpu_torch.models import DeformableDetr, init_parameters  # noqa: E402
 from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, launches  # noqa: E402
 from msda_tpu_torch.parallel import (  # noqa: E402
     auction_assignment,
+    cuda_auction_large,
     cuda_matcher,
     make_train_step,
 )
@@ -236,11 +237,12 @@ def test_launch_counts_take_the_replays_counts(monkeypatch):
     counter, through the one registry (``ops.launches``)."""
     counts = launches.counts()
     assert set(counts) == {"msda_fwd", "msda_bwd", "msda_auction",
-                           "msda_stream_bin", "msda_stream_fwd",
-                           "msda_stream_bwd", "msda_norm"}
+                           "msda_auction_large", "msda_stream_bin",
+                           "msda_stream_fwd", "msda_stream_bwd", "msda_norm"}
     monkeypatch.setattr(cuda_fwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_bwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_matcher, "LAUNCHES", 0)
+    monkeypatch.setattr(cuda_auction_large, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_stream, "LAUNCHES",
                         dict.fromkeys(cuda_stream.KERNELS, 0))
     step = dict.fromkeys(counts, 0)
