@@ -22,7 +22,10 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    and the model's own points at the encoder shape.  K1 also
    (``fwd_edge_cases``): N of T - 1, T, T + 1 and 2T + 1 queries a head
    for its tile of T tasks, one level of 3 points, 16 levels of one point,
-   and 16 levels of 4 points at C = 160 (``csrc/msda_fwd.cu``).
+   and 16 levels of 4 points at C = 160 (``csrc/msda_fwd.cu``).  K2 also
+   (``bwd_edge_cases``): T - 1, T, T + 1 and 2T + 1 tasks for its tile of
+   T, the same odd rows and chunks (at C = 160 with channel steps), and
+   points and weights off an 8-byte boundary (``csrc/msda_bwd.cu``).
 3. Model parity: the full-width Deformable DETR (box refinement, no
    two-stage, so that no top-k can flip on a near tie) with impl="cuda"
    against impl="reference", same weights, f32: the outputs, then the
@@ -208,10 +211,10 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       stock against patched with the port's op: 12 K1 a patched forward,
       top-10 detections identical, boxes within 1e-3, each side's request
       time;
-   d. ``autotune.sweep`` with two candidates a constant (K1/K2's
-      ``MSDA_WARPS_PER_BLOCK``; the streamed kernels' ``STREAM_SLICE``,
-      ``FWD_``/``BWD_CHUNKS_PER_BLOCK``), a short run: each variant builds,
-      agrees with its plain version and is timed.
+   d. ``autotune.sweep`` with two candidates a constant (K1's
+      ``MSDA_FWD_*`` and K2's ``MSDA_BWD_*``; the streamed kernels'
+      ``STREAM_SLICE``, ``FWD_``/``BWD_CHUNKS_PER_BLOCK``), a short run:
+      each variant builds, agrees with its plain version and is timed.
 10. The headline lines: ``python -m msda_tpu_torch.headline`` in a
     subprocess must exit 0 with root ``bench.py``'s three lines (f32 and
     bf16 fwd+bwd, f32 fwd at N=10,000), each finite; they are printed
@@ -535,6 +538,12 @@ def bwd_case_inputs(name: str):
             (img.shape[0], pts.shape[1], img.shape[2], img.shape[3]),
             dtype=np.float32)).to(DEVICE)
         return shapes, img, pts, wts, og
+    if name.startswith("bwd_"):  # bwd_edge_cases
+        case = bwd_edge_cases()[name]
+        img, pts, wts, og = op_inputs(**case, out_grad=True)
+        if name == "bwd_misaligned":
+            pts, wts = misaligned(pts), misaligned(wts)
+        return case["shapes"], img, pts, wts, og
     case = {**OP_CASES, **BWD_CASES}[name]
     img, pts, wts, og = op_inputs(**case, out_grad=True)
     if name == "hot_pixel":  # one place on every level
@@ -543,10 +552,44 @@ def bwd_case_inputs(name: str):
     return case["shapes"], img, pts, wts, og
 
 
+def bwd_edge_cases() -> dict:
+    """K2's own cases: T - 1, T, T + 1 and 2T + 1 tasks (one head of that
+    many queries; T the tile of K2's launch at C = 32: the launch's end
+    inside a tile, on its end, past it, and a ragged last tile), one level
+    of 3 points (8- and 4-byte copies), 16 levels of one point, 16 levels
+    of 4 points at C = 160 (two chunks of points, channel steps) and
+    points and weights off an 8-byte boundary (4-byte copies)."""
+    probe = op_inputs(REF_SHAPES, B=1, N=1, H=8, C=32, P=4, seed=0,
+                      out_grad=True)
+    T = cuda_bwd.launch_plan(probe[0], REF_SHAPES, *probe[1:])["tile"]
+    cases = {f"bwd_tile_t{n}": dict(shapes=REF_SHAPES, B=1, N=n, H=1, C=32,
+                                    P=4, seed=50 + i, oob=True)
+             for i, n in enumerate((T - 1, T, T + 1, 2 * T + 1))}
+    cases["bwd_l1_p3"] = dict(shapes=((37, 53),), B=2, N=301, H=8, C=32,
+                              P=3, seed=54, oob=True)
+    cases["bwd_l16_p1"] = dict(shapes=SIXTEEN_LEVELS, B=2, N=301, H=8,
+                               C=32, P=1, seed=55, oob=True)
+    cases["bwd_l16_p4_c160"] = dict(shapes=SIXTEEN_LEVELS, B=2, N=97, H=4,
+                                    C=160, P=4, seed=56, oob=True)
+    cases["bwd_misaligned"] = dict(shapes=REF_SHAPES, B=2, N=77, H=8, C=32,
+                                   P=4, seed=57, oob=True)
+    return cases
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts one element past an
+    allocation (off an 8-byte boundary)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_backward_kernel() -> float:
-    """Phase 2, K2 on ``BACKWARD_CASES``; returns the largest f32 abs error
-    (over the three gradients) at the encoder shape."""
-    return check_backward_cases(BACKWARD_CASES)
+    """Phase 2, K2 on ``BACKWARD_CASES`` and ``bwd_edge_cases``; returns the
+    largest f32 abs error (over the three gradients) at the encoder
+    shape."""
+    return check_backward_cases((*BACKWARD_CASES, *bwd_edge_cases()))
 
 
 def check_backward_cases(names) -> float:

@@ -138,6 +138,12 @@
 #include "msda_geometry.cuh"
 #include "msda_lanes.cuh"
 
+// warps a block of this form's kernels (the lane-group K2's constant, which
+// the shared headers no longer carry)
+#ifndef MSDA_WARPS_PER_BLOCK
+#define MSDA_WARPS_PER_BLOCK 8
+#endif
+
 // A level of at most this many pixels is coarse (where C <= 32) ...: 1088
 // takes Deformable DETR's two smallest levels, 300 level 3 alone, 0 none.
 #ifndef MSDA_COARSE_PIXELS

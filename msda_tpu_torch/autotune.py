@@ -4,10 +4,10 @@ counterpart of ``scripts/autotune.py``).
     python -m msda_tpu_torch.autotune [--stream] [--queries 10000]
         [--dtype float32|bfloat16] [--iters 60] [--per-constant K]
 
-Without ``--stream``: K2's ``MSDA_WARPS_PER_BLOCK`` (``csrc/
-msda_geometry.cuh``; since K1's tiled design it no longer reaches K1) and
-K1's ``MSDA_FWD_WARPS`` (the tile: 32 / G tasks a warp), ``_STAGES``,
-``_BLOCKS_PER_SM``, ``_CHUNK`` and ``_BATCH`` (``csrc/msda_fwd_plan.cuh``)
+Without ``--stream``: K1's ``MSDA_FWD_WARPS`` (the tile: 32 / G tasks a
+warp), ``_STAGES``, ``_BLOCKS_PER_SM``, ``_CHUNK`` and ``_BATCH``
+(``csrc/msda_fwd_plan.cuh``) and K2's ``MSDA_BWD_WARPS``, ``_STAGES``,
+``_BLOCKS_PER_SM``, ``_CHUNK`` and ``_BATCH`` (``csrc/msda_bwd_plan.cuh``)
 at the reference workload (``utils.bench.reference_workload``: B=4, H=8,
 C=32, P=4, the 64/32/16/8 pyramid, N = ``--queries``; border,
 ``align_corners=True``, the mode of the repository's ``bench.py``); a
@@ -45,12 +45,16 @@ __all__ = ["CANDIDATES", "STREAM_CANDIDATES", "LIBRARY_OF", "BIG_SHAPES",
 
 # each constant's candidates, its default first
 CANDIDATES = {
-    "MSDA_WARPS_PER_BLOCK": (8, 4, 16),
     "MSDA_FWD_WARPS": (4, 2, 8),
     "MSDA_FWD_STAGES": (3, 2, 4),
     "MSDA_FWD_BLOCKS_PER_SM": (8, 4, 16),
     "MSDA_FWD_CHUNK": (32, 8, 64),
     "MSDA_FWD_BATCH": (2, 1, 4),
+    "MSDA_BWD_WARPS": (4, 2, 8),
+    "MSDA_BWD_STAGES": (3, 2, 4),
+    "MSDA_BWD_BLOCKS_PER_SM": (8, 4, 16),
+    "MSDA_BWD_CHUNK": (32, 8, 64),
+    "MSDA_BWD_BATCH": (4, 1, 2),
 }
 # the library each constant reaches (a variant is built for that one only)
 LIBRARY_OF = {name: cuda_fwd.KERNEL if name.startswith("MSDA_FWD_")
@@ -205,7 +209,7 @@ def main(argv=None) -> dict:
                     help="sweep the streamed kernels' constants (STREAM_"
                          "SLICE, FWD_/BWD_CHUNKS_PER_BLOCK) at the 256-base "
                          "pyramid instead of K1's MSDA_FWD_* and K2's "
-                         "MSDA_WARPS_PER_BLOCK")
+                         "MSDA_BWD_*")
     ap.add_argument("--queries", type=int, default=10000)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])

@@ -24,44 +24,68 @@
 // Design.  The Pallas kernel contracts G = E . out_grad^T on the MXU, reduces
 // it with 2-sparse row factors, and accumulates img_grad in VMEM across
 // sequential query blocks, because a TPU has neither gathers nor atomics.
-// This is the gather form, on lane groups (msda_lanes.cuh):
-//   * a task is one (b, n, h); a group of G lanes owns it, VEC = 4 adjacent
-//     channels per lane (G = 8 at C = 32, four tasks per warp).  Tasks are
-//     numbered (b, n, h), so a warp holds heads of one query, whose
-//     img_grad adds go to different rows.  (Numbered (b, h, n), as K1's
-//     are, the warps in flight hold neighbouring queries of one head, whose
-//     adds pile onto the same rows wherever the points cluster, as a
-//     detector's do);
-//   * the group loads its out_grad slice once, then walks the task's L*P
-//     points level by level; every lane computes the point's geometry
-//     itself, so nothing is broadcast across lanes;
-//   * per point each lane loads its channels of the four corners (one
-//     16-byte load each, 8 bytes in the half types) and takes the dot
-//     products of out_grad with each corner over its channels (corner_dots:
-//     the three sums of a point are linear in them);
-//   * the img_grad terms a * (corner's lerp weight) * out_grad of a level's
-//     consecutive points on the same four pixels are summed in registers
-//     (a Pending set), and each such run is added once a corner with a
-//     16-byte vector atomic into an f32 buffer [2, B, I, H, C] that the
-//     wrapper zeroes first.  Where all P points of a query's level fall on
-//     the same pixels, their run is added exactly: the atomic returns the
-//     value it added to, so the rounding error of the sum it stored is
+// This is the gather form on K1's pipeline (msda_fwd.cu):
+//   * Tiles.  A task is one (b, n, h), served by a group of G lanes, VEC =
+//     4 adjacent channels a lane (msda_lanes.cuh; G = 8 at C = 32).  A
+//     block serves a tile of T = MSDA_BWD_WARPS * 32 / G consecutive tasks
+//     (T = 16 at C = 32), numbered (b, n, h): a warp holds heads of one
+//     query, whose img_grad adds go to different rows (numbered (b, h, n),
+//     as K1's are, neighbouring queries of one head pile their adds onto
+//     the same rows wherever the points cluster, as a detector's do: 12%
+//     slower, measured on the lane-group kernel).  Blocks are persistent,
+//     MSDA_BWD_BLOCKS_PER_SM a multiprocessor (fewer where registers or
+//     shared memory do not fit them), each walking the tiles blockIdx.x,
+//     + gridDim.x, ...; task
+//     indices are 32-bit, divided by msda::FastDiv.  The host plan
+//     (msda_bwd_plan.cuh) sizes tile, chunks and copies from the shapes.
+//   * Points and weights by asynchronous copies.  A tile's coordinates and
+//     weights (one contiguous run of rows in this order) go into shared
+//     memory by cp.async, each thread's copies arriving on the stage's
+//     mbarrier, in a ring of MSDA_BWD_STAGES stages (msda_async.cuh): the
+//     next tiles' copies are in flight while a tile is gathered, so no
+//     corner load waits on a point load.
+//   * Geometry once a (task, point).  The block's threads compute each
+//     point's four corner offsets (32-bit element offsets from the head's
+//     first pixel) and its (dx, dy, weight, corner mask bits) into shared
+//     memory (msda::corner_geometry, K1's); a group's lanes read them with
+//     two broadcast 16-byte loads and rebuild the lerp factors and masks
+//     from them with corner_geometry's own expressions.
+//   * Corner loads batched.  A lane issues the corner loads of
+//     MSDA_BWD_BATCH points (a level at P = 4) before their dot products:
+//     one 16-byte load a corner in f32, 8 bytes in the half types.
+//   * Per point each lane takes the dot products of out_grad with each
+//     corner over its channels in f64 (corner_dots) and turns them into
+//     its share of the point's three sums (point_sums).  The batch's sums
+//     are reduced over the group together (group_scatter): each butterfly
+//     step keeps half of the values a lane holds and sends the other half,
+//     so a batch of 4 points costs 18 shuffles where three group_sums a
+//     point cost 60, each sum added in group_sum's order (the results are
+//     bit-identical to it); the lanes left holding a sum write it.
+//   * img_grad: the terms a * (corner's lerp weight) * out_grad of a
+//     task's consecutive points on the same four pixels are summed in
+//     registers (a Pending set), and each such run is added once a corner
+//     with a 16-byte vector atomic into an f32 buffer [2, B, I, H, C] that
+//     the wrapper zeroes first.  Where all P points of a query's level fall
+//     on the same pixels, their run is added exactly: the atomic returns
+//     the value it added to, so the rounding error of the sum it stored is
 //     known (two-sum) and goes, with a second atomic, into the buffer's
 //     second half; the wrapper adds the halves (and casts the sum to img's
 //     type).  A corner whose weight is 0 (masked in zeros mode) adds
-//     nothing;
-//   * the lane turns its four dot products into its share of the three
-//     sums (point_sums), which are reduced over the group's G lanes in
-//     log2 G butterfly steps, one warp instruction for all the warp's
-//     tasks.
+//     nothing.
+//   * Chunks and channel steps.  A task of more than MSDA_BWD_CHUNK points
+//     (or more than shared memory holds for the tile) is staged in chunks,
+//     its Pending set kept in registers across them.  A channel count past
+//     G * VEC (only with G = 32) is walked in channel steps inside each
+//     point, and then every point adds its own terms (MERGE false).
 // Where C is not a multiple of 4 or img / out_grad are not aligned for the
 // vector loads, the same template runs with VEC = 1 (one channel a lane).
-// A channel count past G * VEC loops over channel steps, and then every
-// point adds its own terms (MERGE false: a Pending set a step would cost
-// registers for a case no model here has).  Groups past the ragged end of
-// the task axis compute on the last task and write nothing, so that every
-// lane takes part in the butterflies.  The order of the atomic adds changes
-// from run to run, so img_grad differs in its last bits between runs.
+// Groups past the ragged end of a tile compute on its last task and write
+// nothing, so that every lane takes part in the butterflies.  The order of
+// the atomic adds changes from run to run, so img_grad differs in its last
+// bits between runs.  The point and weight gradients are summed as the
+// lane-group kernel summed them, in the same order; where the compiler
+// contracts a combination of the f64 sums into a different fused
+// multiply-add they can differ from it in the last bit of an f32 value.
 //
 // Precision.  The point gradients are sums over channels of terms as large
 // as (level width) * |out_grad * img|, which cancel: at the encoder's widths
@@ -96,56 +120,92 @@
 // often on the small levels.  Walking several queries of a head per group
 // (merging across them) was slower on uniform points and not clearly
 // faster on the model's; 16-byte half-type loads (8 channels a lane) were
-// slower too.
+// slower too.  60ed581's K2 was still the lane-group kernel with these
+// merged adds: a group of G lanes walked its task's points one at a time,
+// every lane loading each point's coordinates and weight, computing its
+// whole geometry and then its four corner loads (two dependent trips to
+// L2 a point), and reducing three sums a point in 15 shuffles (its source:
+// git show 60ed581:msda_tpu_torch/csrc/msda_bwd.cu).  This design moved it
+// onto K1's pipeline (torch_bwd_designs.py, device time of the kernel
+// beside 60ed581's, in turns): on the model's points at 800x1333
+// 1.2007 -> 1.0530 ms in f32, 1.1098 -> 1.0562 in bf16; at 1600x2666
+// 4.7161 -> 4.1476 and 4.3819 -> 4.1214; on the benchmark's op cells'
+// points (the offset grid plus jitter) 1.2198 -> 1.0926 at 800x1333 and
+// 4.8210 -> 4.4518 at 1600x2666 in f32.  Batches of 4 points won over 2
+// (1.0715) and 1 (1.1325), the reduce-scatter over three group_sums a
+// point (docs/experiments/k2_group_sums: 1.1901), the default tile and
+// grid over 2-warp blocks, 8-warp blocks (1.3683: 168 registers leave one
+// block an SM), launch bounds of 4 blocks an SM (1.1096) or more (spills,
+// 2.3121 at 6), a block walking one run of consecutive tiles (1.2688: the
+// blocks then spread over the whole pyramid, its img and img_grad rows
+// over L2) or runs of 2 and 4 tiles (-1% and +3%; at the decoder's 300
+// tiles +34% and +128%, blocks left idle), 2 or 4 stages and chunks of 8
+// (within 1-2%).
 //
-// What bounds it (same card; torch_kernel_ab.py --parent, the device time
-// of the kernel, and torch_bwd_merge.py, chip_smoke.py phase 6): at the
-// encoder shape the call must move 273.1 MB in f32 and 204.8 MB in bf16,
-// 81.5 and 61.1 us at 3.35 TB/s (utils.bench.msda_bound).  On the model's
-// points the kernel takes 1.2034 ms in f32 and 1.1129 in bf16 (de67cc6's
-// 1.2693 and 1.2742), on uniform points 1.3271 and 1.1902 (1.3142 and
-// 1.2087): on uniform points 6% of the bound.  Zeroing both halves and
-// adding them take 0.0655 ms of device time a call in f32 (phase 6), about
-// 0.05 more than one half's zeroing.  The half types' merging instances
-// are held to three blocks an SM (80 registers, no spills; without the
-// bound bf16 took 1.2059 on the model's points), f32's is not (108
-// registers; held to 80 it spilled and took 1.2139 and 1.3749); the others
-// take 64 to 120 registers, no spills.  The f64 sums cost 1%; the atomics
-// are still the largest part, and every point still reads its four corner
-// rows from L2.
+// What bounds it (same card, torch_bwd_designs.py's ablations, f32 on the
+// model's points at 800x1333): the img_grad atomics.  Without any atomic
+// the kernel takes 0.5830 ms (60ed581's: 0.6238), with every corner load
+// from one pixel (atomics and arithmetic, no trip to L2 for a row)
+// 0.9401, with neither 0.2898; with the three sums in f32 1.0131.  So the
+// gather half is no longer what sets the pace: its loads add 0.11 ms to
+// the atomics' and its f64 arithmetic 0.04 (at the 1600x2666 cell's points
+// 4.1307 of 4.4518 without a row load; 4.3546 with every exact add made
+// plain).  At the encoder shape the call must move 273.1 MB in f32 and
+// 204.8 MB in bf16, 81.5 and 61.1 us at 3.35 TB/s (utils.bench.msda_bound):
+// the kernel is at 7.7% of that bound on the model's points (6.8% on
+// uniform points), the 16-byte vector atomics' trips to L2 (a corner
+// run's 128 bytes a group) being most of the rest.  Zeroing both halves
+// and adding them take 0.0662 ms of device time a call in f32 (phase 6).
+// The merging instances take 168 registers with no spill in the half
+// types and 8 bytes in f32 (three blocks of 4 warps an SM), the others 48
+// to 92.
 //
 // Interface: a plain C entry point (msda_bwd_launch), loaded with ctypes by
 // msda_tpu_torch/ops/cuda_bwd.py.  It launches on the given stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
+// msda_bwd_plan returns a launch's plan.
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
 
+#include "msda_async.cuh"
+#include "msda_bwd_plan.cuh"
 #include "msda_geometry.cuh"
 #include "msda_lanes.cuh"
 
 namespace {
 
+using msda::arrive_after_copies;
+using msda::barrier_init;
+using msda::BwdPlan;
+using msda::copy_async;
 using msda::corner_dots;
-using msda::group_sum;
+using msda::divide;
+using msda::fast_div;
+using msda::FastDiv;
 using msda::LevelTable;
 using msda::load_vec;
+using msda::multiprocessors;
 using msda::point_sums;
+using msda::smem_address;
+using msda::wait_phase;
 
-// Warps an SM that the half types' merging kernels ask for in their launch
-// bounds (three blocks of 8 warps: at most 80 registers a thread; f32's
-// spilled there and ran slower).
-constexpr int kMergeWarpsPerSM = 24;
+constexpr int kThreads = MSDA_BWD_WARPS * 32;
+static_assert(MSDA_BWD_BATCH >= 1 &&
+                  (MSDA_BWD_BATCH & (MSDA_BWD_BATCH - 1)) == 0,
+              "MSDA_BWD_BATCH must be a power of two");
 
 // The img_grad terms of a corner set that the task has not added yet,
 // summed in registers while consecutive points of a level fall on the same
-// four pixels: idx[0] and idx[3] (the top-left and bottom-right corners) fix
-// the set, nz marks the corners with a nonzero lerp weight, len counts the
-// run's points.  A run of all P points of a query's level is added with
-// its rounding error kept (add_exact): there every point shares the pixels.
+// four pixels: off[0] and off[3] (the top-left and bottom-right corners'
+// offsets) fix the set, nz marks the corners with a nonzero lerp weight,
+// len counts the run's points.  A run of all P points of a query's level is
+// added with its rounding error kept (add_exact): there every point shares
+// the pixels.
 struct Pending {
-  int idx[4] = {-1, -1, -1, -1};
+  int off[4] = {-1, -1, -1, -1};
   float4 acc[4] = {};
   unsigned nz = 0;
   int len = 0;
@@ -178,18 +238,17 @@ __device__ __forceinline__ void add_exact(float* p, const int64_t lo,
   }
 }
 
-// Adds the pending terms of this lane's channels (c) to img_grad, one
-// vector atomic a corner (a run of exact_run points with its error kept),
-// and empties the set.
+// Adds the pending terms of this lane's channels to img_grad (ig: the
+// head's first pixel at the lane's channels), one vector atomic a corner (a
+// run of exact_run points with its error kept), and empties the set.
 template <int VEC>
-__device__ __forceinline__ void flush(Pending& s, float* ig_bh,
-                                      const int64_t lo, const int64_t HC,
-                                      const int c, const int exact_run) {
+__device__ __forceinline__ void flush(Pending& s, float* ig,
+                                      const int64_t lo, const int exact_run) {
   const bool exact = s.len >= exact_run;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     if ((s.nz >> q) & 1u) {
-      float* p = ig_bh + s.idx[q] * HC + c;
+      float* p = ig + s.off[q];
       if (exact) {
         add_exact<VEC>(p, lo, s.acc[q]);
       } else if constexpr (VEC == 4) {
@@ -204,164 +263,433 @@ __device__ __forceinline__ void flush(Pending& s, float* ig_bh,
   s.len = 0;
 }
 
+// One butterfly step of group_scatter on the first N values of v: a lane
+// keeps the upper half where its lane bit s is set, else the lower, and
+// adds the partner's half to it, in group_sum's order (own + partner's).
+template <int N, int K, typename F>
+__device__ __forceinline__ void scatter_steps(F (&v)[K], int& s, int& first,
+                                              const int c_lane) {
+  if constexpr (N > 1) {
+    if (s == 0) return;
+    const bool up = (c_lane & s) != 0;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const F send = up ? v[i] : v[i + N / 2];
+      const F keep = up ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(MSDA_FULL_MASK, send, s);
+    }
+    if (up) first += N / 2;
+    s >>= 1;
+    scatter_steps<N / 2>(v, s, first, c_lane);
+  }
+}
+
+// The sums of K values (K a power of two) over the G lanes of a group (G a
+// power of two; every lane of the warp calls it), each added in
+// group_sum's order, so that every sum is bit-identical to group_sum's:
+// afterwards lane c_lane holds in v[0 .. max(1, K / G)) the sums of the
+// values numbered from the index it returns, and where G > K the G / K
+// lanes that differ in their low bits hold the same sums.
+template <int K, typename F>
+__device__ __forceinline__ int group_scatter(F (&v)[K], const int G,
+                                             const int c_lane) {
+  int s = G >> 1, first = 0;
+  scatter_steps<K>(v, s, first, c_lane);
+  for (; s > 0; s >>= 1) v[0] += __shfl_xor_sync(MSDA_FULL_MASK, v[0], s);
+  return first;
+}
+
+// A point's lerp factors, corner masks and attention weight, rebuilt from
+// its entry (dx, dy, weight, mask bits) with corner_geometry's own
+// expressions.
+struct Factors {
+  float vx0, vx1, uy0, uy1, mx0, mx1, my0, my1, a;
+
+  __device__ __forceinline__ explicit Factors(const float4 e) {
+    const int bits = __float_as_int(e.w);
+    vx0 = (bits & 1) ? 1.f - e.x : 0.f;
+    vx1 = (bits & 2) ? e.x : 0.f;
+    uy0 = (bits & 4) ? 1.f - e.y : 0.f;
+    uy1 = (bits & 8) ? e.y : 0.f;
+    mx0 = (bits & 1) ? 1.f : 0.f;
+    mx1 = (bits & 2) ? 1.f : 0.f;
+    my0 = (bits & 4) ? 1.f : 0.f;
+    my1 = (bits & 8) ? 1.f : 0.f;
+    a = e.z;
+  }
+
+  // this lane's share of the point's three sums (point_sums)
+  __device__ __forceinline__ void sums(const double (&dots)[4], float& w,
+                                       double& x, double& y) const {
+    point_sums(dots, vx0, vx1, uy0, uy1, mx0, mx1, my0, my1, w, x, y);
+  }
+};
+
+// The divisors a task's indices need, as multiplies and shifts.
+struct Divisors {
+  FastDiv h, nh, p;  // by H, by N * H, by P
+};
+
 // img, og: [B, I, H, C] and [B, N, H, C] in T; pts [B, N, H, L, P, 2] and
 // wts [B, N, H, L, P] in f32; img_grad [2, B, I, H, C] f32 (zeroed: the
 // sums, then at img_grad + lo the rounding errors of the exact adds),
 // pts_grad and wts_grad f32 like pts and wts.  All contiguous.  With MERGE
-// (the task's channels in one step of the group's lanes) the img_grad
-// terms of a level's points go through a Pending set.
+// (plan.steps == 1: the task's channels in one step of the group's lanes)
+// the img_grad terms go through a Pending set.
+// Dynamic shared memory (plan.smem bytes): the tile's entries, corner
+// offsets [T][stride] int4 and geometry [T][stride] float4, then the
+// stages' coordinates [S][T][stride][2] and weights [S][T][stride] f32.
 template <typename T, int VEC, bool MERGE>
-__global__ void __launch_bounds__(
-    MSDA_WARPS_PER_BLOCK * 32,
-    MERGE && !std::is_same<T, float>::value
-        ? kMergeWarpsPerSM / MSDA_WARPS_PER_BLOCK
-        : 1)
+__global__ void __launch_bounds__(kThreads)
     msda_bwd_kernel(const T* __restrict__ img, const float* __restrict__ pts,
                     const float* __restrict__ wts, const T* __restrict__ og,
                     float* __restrict__ img_grad,
                     float* __restrict__ pts_grad,
                     float* __restrict__ wts_grad, const LevelTable levels,
-                    const int64_t lo, const int64_t num_tasks, const int I,
-                    const int N, const int H, const int C, const int L,
-                    const int P, const int G, const bool zeros,
+                    const BwdPlan plan, const Divisors div, const int64_t lo,
+                    const int num_tasks, const int I, const int H,
+                    const int C, const int L, const int P, const bool zeros,
                     const bool align_corners) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[MSDA_BWD_STAGES];
+
+  // channel steps keep every point's dot products across them: one point
+  // a batch there
+  constexpr int kBatch = MERGE ? MSDA_BWD_BATCH : 1;
+  const int tile = plan.tile, G = plan.lanes;
+  const int shift = __ffs(plan.stride) - 1;  // stride = 1 << shift
+  const int entries = tile << shift;
+  int4* const corner_off = reinterpret_cast<int4*>(smem);
+  float4* const corner_geo = reinterpret_cast<float4*>(corner_off + entries);
+  float* const stage_pts = reinterpret_cast<float*>(corner_geo + entries);
+  float* const stage_wts = stage_pts + MSDA_BWD_STAGES * entries * 2;
+
   const int lane = threadIdx.x & 31;
   const int group = lane / G, c_lane = lane - group * G;
-  // the warp's first task = (b * N + n) * H + h
-  const int64_t first =
-      ((int64_t)blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5)) *
-      (32 / G);
-  if (first >= num_tasks) return;  // whole warps leave together
-  const bool valid = first + group < num_tasks;
-  const int64_t task = valid ? first + group : num_tasks - 1;
-  const int h = (int)(task % H);
-  const int64_t b = task / H / N;
-
+  const int warp_first = (threadIdx.x >> 5) * (32 / G);  // its first slot
+  const int slot = warp_first + group;                    // task in a tile
   const int LP = L * P;
-  const int64_t HC = (int64_t)H * C;
-  const float* pt = pts + task * (int64_t)LP * 2;
-  const float* wt = wts + task * (int64_t)LP;
-  const T* og_row = og + task * (int64_t)C;
-  const int64_t base = b * (int64_t)I * HC + (int64_t)h * C;
-  const T* img_bh = img + base;
-  float* ig_bh = img_grad + base;
-  float* pg = pts_grad + task * (int64_t)LP * 2;
-  float* wg = wts_grad + task * (int64_t)LP;
-
+  const int HC = H * C;
+  const int per_tile = plan.chunks;
+  const int my_units =
+      ((plan.tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * per_tile;
+  // a row of a stage: the coordinates' copies (2 << shift floats) and the
+  // weights' (1 << shift), each a power of two of them
+  const int pt_shift = shift + 1 - (plan.vw_pts >> 1);
+  const int wt_shift = shift - (plan.vw_wts >> 1);
   const int c0 = c_lane * VEC, step = G * VEC;
-  const float4 o0 =
-      c0 < C ? load_vec<VEC>(og_row + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int l = 0; l < L; ++l) {
-    const int hl = levels.h[l], wl = levels.w[l], off = levels.offset[l];
-    const float xscale = (float)(align_corners ? wl - 1 : wl);
-    const float yscale = (float)(align_corners ? hl - 1 : hl);
-    Pending pend;
-    for (int k = l * P; k < (l + 1) * P; ++k) {
-      const msda::Corners g = msda::corner_geometry(
-          pt[2 * k], pt[2 * k + 1], hl, wl, off, zeros, align_corners);
-      const float a = wt[k];
-      const int idx[4] = {g.i00, g.i01, g.i10, g.i11};
-      const float lerp[4] = {g.uy0 * g.vx0, g.uy0 * g.vx1, g.uy1 * g.vx0,
-                             g.uy1 * g.vx1};
-      double dots[4] = {0.0, 0.0, 0.0, 0.0};
-      if constexpr (MERGE) {  // one channel step: c0 < C or nothing
-        if (c0 < C) {
-          corner_dots<VEC>(o0, load_vec<VEC>(img_bh + idx[0] * HC + c0),
-                           load_vec<VEC>(img_bh + idx[1] * HC + c0),
-                           load_vec<VEC>(img_bh + idx[2] * HC + c0),
-                           load_vec<VEC>(img_bh + idx[3] * HC + c0), dots);
-          if (valid) {
-            if (idx[0] != pend.idx[0] || idx[3] != pend.idx[3]) {
-              flush<VEC>(pend, ig_bh, lo, HC, c0, P);
-#pragma unroll
-              for (int q = 0; q < 4; ++q) pend.idx[q] = idx[q];
-            }
-            ++pend.len;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              // a corner masked in zeros mode adds nothing
-              const float w = a * lerp[q];
-              pend.nz |= (w != 0.f ? 1u : 0u) << q;
-              pend.acc[q].x += w * o0.x;
-              pend.acc[q].y += w * o0.y;
-              pend.acc[q].z += w * o0.z;
-              pend.acc[q].w += w * o0.w;
-            }
-          }
-        }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < MSDA_BWD_STAGES; ++s) {
+      barrier_init(smem_address(&full[s]), kThreads);
+    }
+  }
+  __syncthreads();
+
+  // Copies the coordinates and weights of unit q (a tile's chunk) into
+  // stage q % S; every thread arrives on its barrier.  A task's rows are
+  // its index t: the tasks are numbered as pts is laid out.
+  auto issue = [&](const int q) {
+    const int tile_id = blockIdx.x + (q / per_tile) * gridDim.x;
+    const int k0 = q % per_tile * plan.chunk;
+    const int kp = min(plan.chunk, LP - k0);
+    const int s = q % MSDA_BWD_STAGES;
+    float* const sp = stage_pts + s * entries * 2;
+    float* const sw = stage_wts + s * entries;
+    const int pts_end = tile << pt_shift;
+    for (int e = threadIdx.x; e < pts_end + (tile << wt_shift);
+         e += kThreads) {
+      const bool is_pt = e < pts_end;
+      const int e2 = is_pt ? e : e - pts_end;
+      const int j = e2 >> (is_pt ? pt_shift : wt_shift);
+      const int v = e2 - (j << (is_pt ? pt_shift : wt_shift));
+      const int t = tile_id * tile + j;
+      const int vw = is_pt ? plan.vw_pts : plan.vw_wts;
+      if (t >= num_tasks || v * vw >= (is_pt ? 2 * kp : kp)) continue;
+      const int64_t row = (int64_t)t * LP + k0;
+      if (is_pt) {
+        copy_async(smem_address(sp + (j << (shift + 1)) + v * vw),
+                   pts + row * 2 + v * vw, vw);
       } else {
-        for (int c = c0; c < C; c += step) {
-          const float4 o = c == c0 ? o0 : load_vec<VEC>(og_row + c);
-          corner_dots<VEC>(o, load_vec<VEC>(img_bh + idx[0] * HC + c),
-                           load_vec<VEC>(img_bh + idx[1] * HC + c),
-                           load_vec<VEC>(img_bh + idx[2] * HC + c),
-                           load_vec<VEC>(img_bh + idx[3] * HC + c), dots);
-          if (valid) {
-            const float4 ao = make_float4(a * o.x, a * o.y, a * o.z, a * o.w);
+        copy_async(smem_address(sw + (j << shift) + v * vw),
+                   wts + row + v * vw, vw);
+      }
+    }
+    arrive_after_copies(smem_address(&full[s]));
+  };
+
+  for (int s = 0; s < MSDA_BWD_STAGES && s < my_units; ++s) issue(s);
+
+  // a task's state across its chunks: its out_grad channels and its
+  // pending img_grad terms
+  float4 o0 = make_float4(0.f, 0.f, 0.f, 0.f);
+  Pending pend;
+  for (int q = 0; q < my_units; ++q) {
+    const int tile_id = blockIdx.x + (q / per_tile) * gridDim.x;
+    const int chunk = q % per_tile;
+    const int k0 = chunk * plan.chunk;
+    const int kp = min(plan.chunk, LP - k0);
+    const int s = q % MSDA_BWD_STAGES;
+    wait_phase(smem_address(&full[s]), (uint32_t)((q / MSDA_BWD_STAGES) & 1));
+
+    // the geometry of the tile's points, once each
+    const float* const sp = stage_pts + s * entries * 2;
+    const float* const sw = stage_wts + s * entries;
+    const int live = min(tile, num_tasks - tile_id * tile);
+    for (int i = threadIdx.x; i < (live << shift); i += kThreads) {
+      const int kk = i & (plan.stride - 1);
+      if (kk >= kp) continue;
+      const int l = divide(k0 + kk, div.p);
+      const msda::Corners g = msda::corner_geometry(
+          sp[2 * i], sp[2 * i + 1], levels.h[l], levels.w[l],
+          levels.offset[l], zeros, align_corners);
+      corner_off[i] = make_int4(g.i00 * HC, g.i01 * HC, g.i10 * HC,
+                                g.i11 * HC);
+      const int bits = (g.mx0 != 0.f ? 1 : 0) | (g.mx1 != 0.f ? 2 : 0) |
+                       (g.my0 != 0.f ? 4 : 0) | (g.my1 != 0.f ? 8 : 0);
+      corner_geo[i] = make_float4(g.dx, g.dy, sw[i], __int_as_float(bits));
+    }
+    __syncthreads();  // the entries are written; stage s is free again
+    if (q + MSDA_BWD_STAGES < my_units) issue(q + MSDA_BWD_STAGES);
+
+    // the gather: a group its task, VEC channels a lane; a group past the
+    // tile's ragged end computes on its last task and writes nothing
+    if (warp_first < live) {
+      const bool valid = slot < live;
+      const int t = tile_id * tile + (valid ? slot : live - 1);
+      const int h = t - divide(t, div.h) * H;
+      const int b = divide(t, div.nh);
+      const int64_t base = ((int64_t)b * I * H + h) * C;
+      const T* const img_bh = img + base;
+      float* const ig_bh = img_grad + base;
+      const T* const og_row = og + (int64_t)t * C;
+      float* const pg = pts_grad + ((int64_t)t * LP + k0) * 2;
+      float* const wg = wts_grad + (int64_t)t * LP + k0;
+      const int entry0 = (valid ? slot : live - 1) << shift;
+      const int4* const eo = corner_off + entry0;
+      const float4* const eg = corner_geo + entry0;
+      if (chunk == 0) {
+        o0 = c0 < C ? load_vec<VEC>(og_row + c0)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        pend = Pending();
+      }
+
+      // Points kb .. kb + NB - 1 of the chunk: their corner loads, then
+      // each point's dot products, img_grad terms and sums, then the sums
+      // reduced over the group and written by the lanes left holding them.
+      auto gather = [&](auto batch, const int kb) {
+        constexpr int NB = decltype(batch)::value;
+        float sum_w[NB];
+        double sum_xy[2 * NB];
+        if constexpr (MERGE) {  // one channel step: c0 < C or nothing
+          if (c0 < C) {
+            const T* const at = img_bh + c0;
+            float4 v[NB][4];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              msda::add_grad<VEC>(ig_bh + idx[q] * HC + c, ao, lerp[q]);
+            for (int u = 0; u < NB; ++u) {
+              const int4 o = eo[kb + u];
+              v[u][0] = load_vec<VEC>(at + o.x);
+              v[u][1] = load_vec<VEC>(at + o.y);
+              v[u][2] = load_vec<VEC>(at + o.z);
+              v[u][3] = load_vec<VEC>(at + o.w);
+            }
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+              const Factors f(eg[kb + u]);
+              double dots[4] = {0.0, 0.0, 0.0, 0.0};
+              corner_dots<VEC>(o0, v[u][0], v[u][1], v[u][2], v[u][3],
+                               dots);
+              if (valid) {
+                const int4 o = eo[kb + u];
+                if (o.x != pend.off[0] || o.w != pend.off[3]) {
+                  flush<VEC>(pend, ig_bh + c0, lo, P);
+                  pend.off[0] = o.x;
+                  pend.off[1] = o.y;
+                  pend.off[2] = o.z;
+                  pend.off[3] = o.w;
+                }
+                ++pend.len;
+                const float lerp[4] = {f.uy0 * f.vx0, f.uy0 * f.vx1,
+                                       f.uy1 * f.vx0, f.uy1 * f.vx1};
+#pragma unroll
+                for (int q4 = 0; q4 < 4; ++q4) {
+                  // a corner masked in zeros mode adds nothing
+                  const float w = f.a * lerp[q4];
+                  pend.nz |= (w != 0.f ? 1u : 0u) << q4;
+                  pend.acc[q4].x += w * o0.x;
+                  pend.acc[q4].y += w * o0.y;
+                  pend.acc[q4].z += w * o0.z;
+                  pend.acc[q4].w += w * o0.w;
+                }
+              }
+              f.sums(dots, sum_w[u], sum_xy[2 * u], sum_xy[2 * u + 1]);
+            }
+          } else {  // no channel: point_sums of zero dots
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+              sum_w[u] = 0.f;
+              sum_xy[2 * u] = sum_xy[2 * u + 1] = 0.0;
+            }
+          }
+        } else {
+          double dots[NB][4] = {};
+          for (int c = c0; c < C; c += step) {
+            const float4 oc = c == c0 ? o0 : load_vec<VEC>(og_row + c);
+            const T* const at = img_bh + c;
+            float4 v[NB][4];
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+              const int4 o = eo[kb + u];
+              v[u][0] = load_vec<VEC>(at + o.x);
+              v[u][1] = load_vec<VEC>(at + o.y);
+              v[u][2] = load_vec<VEC>(at + o.z);
+              v[u][3] = load_vec<VEC>(at + o.w);
+            }
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+              corner_dots<VEC>(oc, v[u][0], v[u][1], v[u][2], v[u][3],
+                               dots[u]);
+              if (valid) {
+                const Factors f(eg[kb + u]);
+                const int4 o = eo[kb + u];
+                const float4 ao = make_float4(f.a * oc.x, f.a * oc.y,
+                                              f.a * oc.z, f.a * oc.w);
+                float* const ig = ig_bh + c;
+                msda::add_grad<VEC>(ig + o.x, ao, f.uy0 * f.vx0);
+                msda::add_grad<VEC>(ig + o.y, ao, f.uy0 * f.vx1);
+                msda::add_grad<VEC>(ig + o.z, ao, f.uy1 * f.vx0);
+                msda::add_grad<VEC>(ig + o.w, ao, f.uy1 * f.vx1);
+              }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            Factors(eg[kb + u]).sums(dots[u], sum_w[u], sum_xy[2 * u],
+                                     sum_xy[2 * u + 1]);
+          }
+        }
+        const int first_w = group_scatter(sum_w, G, c_lane);
+        const int first_xy = group_scatter(sum_xy, G, c_lane);
+        if (!valid) return;
+        // the lanes that hold a share of the sums: all where G <= K, else
+        // one of each G / K
+        if (G <= NB || (c_lane & (G / NB - 1)) == 0) {
+#pragma unroll
+          for (int i = 0; i < NB; ++i) {
+            if (i < max(1, NB / G)) wg[kb + first_w + i] = sum_w[i];
+          }
+        }
+        if (G <= 2 * NB || (c_lane & (G / (2 * NB) - 1)) == 0) {
+#pragma unroll
+          for (int i = 0; i < 2 * NB; ++i) {
+            if (i < max(1, 2 * NB / G)) {
+              const int j = first_xy + i;  // point j / 2, x or y by j % 2
+              const int kk = kb + (j >> 1);
+              const int l = divide(k0 + kk, div.p);
+              const int extent = (j & 1) ? levels.h[l] : levels.w[l];
+              const float scale =
+                  (float)(align_corners ? extent - 1 : extent);
+              pg[2 * kk + (j & 1)] =
+                  (float)((double)eg[kk].z * scale * sum_xy[i]);
             }
           }
         }
+      };
+
+      int kb = 0;
+      for (; kb + kBatch <= kp; kb += kBatch) {
+        gather(std::integral_constant<int, kBatch>(), kb);
       }
-      float sum_w;
-      double sum_x, sum_y;
-      point_sums(dots, g.vx0, g.vx1, g.uy0, g.uy1, g.mx0, g.mx1, g.my0, g.my1,
-                 sum_w, sum_x, sum_y);
-      sum_w = group_sum(sum_w, G);
-      sum_x = group_sum(sum_x, G);
-      sum_y = group_sum(sum_y, G);
-      if (valid && c_lane == 0) {
-        wg[k] = sum_w;
-        pg[2 * k] = (float)((double)a * xscale * sum_x);
-        pg[2 * k + 1] = (float)((double)a * yscale * sum_y);
+      for (; kb < kp; ++kb) gather(std::integral_constant<int, 1>(), kb);
+      if constexpr (MERGE) {
+        if (valid && c0 < C && chunk == per_tile - 1) {
+          flush<VEC>(pend, ig_bh + c0, lo, P);
+        }
       }
     }
-    if constexpr (MERGE) {
-      if (c0 < C) flush<VEC>(pend, ig_bh, lo, HC, c0, P);
-    }
+    __syncthreads();  // the entries are read before the next unit's
   }
 }
 
+// Lets an instantiation use up to MSDA_BWD_SMEM_MAX bytes of dynamic shared
+// memory a block, once a device.
 template <typename T, int VEC, bool MERGE>
-void launch(const void* img, const void* pts, const void* wts, const void* og,
-            void* img_grad, void* pts_grad, void* wts_grad,
-            const LevelTable& levels, int64_t lo, int64_t num_tasks,
-            int64_t blocks, int I, int N, int H, int C, int L, int P, int G,
-            bool zeros, bool align_corners, cudaStream_t stream) {
-  msda_bwd_kernel<T, VEC, MERGE>
-      <<<(unsigned int)blocks, MSDA_WARPS_PER_BLOCK * 32, 0, stream>>>(
-          static_cast<const T*>(img), static_cast<const float*>(pts),
-          static_cast<const float*>(wts), static_cast<const T*>(og),
-          static_cast<float*>(img_grad), static_cast<float*>(pts_grad),
-          static_cast<float*>(wts_grad), levels, lo, num_tasks, I, N, H, C,
-          L, P, G, zeros, align_corners);
+int allow_shared() {
+  static std::atomic<uint64_t> done{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t bit = 1ull << (device & 63);
+  if (!(done.load() & bit)) {
+    err = cudaFuncSetAttribute(msda_bwd_kernel<T, VEC, MERGE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MSDA_BWD_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    done.fetch_or(bit);
+  }
+  return (int)cudaSuccess;
 }
 
-// VEC = 4 where C and the alignment of img and out_grad allow it; MERGE
-// where a task's channels take one step of its lanes.
+template <typename T, int VEC, bool MERGE>
+int launch(const void* img, const void* pts, const void* wts, const void* og,
+           void* img_grad, void* pts_grad, void* wts_grad,
+           const LevelTable& levels, const BwdPlan& plan, int64_t lo,
+           int num_tasks, int I, int N, int H, int C, int L, int P,
+           bool zeros, bool align_corners, cudaStream_t stream) {
+  auto kernel = msda_bwd_kernel<T, VEC, MERGE>;
+  int err = allow_shared<T, VEC, MERGE>();
+  if (err != (int)cudaSuccess) return err;
+  int resident = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, kernel, kThreads, plan.smem);
+  if (err != (int)cudaSuccess) return err;
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  const int sms = multiprocessors();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int per_sm =
+      resident < MSDA_BWD_BLOCKS_PER_SM ? resident : MSDA_BWD_BLOCKS_PER_SM;
+  const int most = per_sm * sms;
+  const int blocks = plan.tiles < most ? plan.tiles : most;
+  const Divisors div = {fast_div(H), fast_div(N * H), fast_div(P)};
+  kernel<<<blocks, kThreads, plan.smem, stream>>>(
+      static_cast<const T*>(img), static_cast<const float*>(pts),
+      static_cast<const float*>(wts), static_cast<const T*>(og),
+      static_cast<float*>(img_grad), static_cast<float*>(pts_grad),
+      static_cast<float*>(wts_grad), levels, plan, div, lo, num_tasks, I, H,
+      C, L, P, zeros, align_corners);
+  return (int)cudaGetLastError();
+}
+
+// VEC = 4 where C and the alignment of img and out_grad allow it; the task's
+// channels in one step of its lanes where C <= G * VEC.
+template <typename T>
+BwdPlan plan_for(const void* img, const void* pts, const void* wts,
+                 const void* og, int tasks, int C, int L, int P) {
+  const bool v4 = msda::vec4<T>(C, img) && msda::vec4<T>(C, og);
+  const int vec = v4 ? 4 : 1;
+  return msda::bwd_plan(
+      tasks, L, P, C, msda::group_lanes(C, vec), vec,
+      msda::fwd_alignment(reinterpret_cast<uintptr_t>(pts)),
+      msda::fwd_alignment(reinterpret_cast<uintptr_t>(wts)));
+}
+
 template <typename T>
 int dispatch(const void* img, const void* pts, const void* wts,
              const void* og, void* img_grad, void* pts_grad, void* wts_grad,
              const LevelTable& levels, int B, int I, int N, int H, int C,
              int L, int P, bool zeros, bool align_corners,
              cudaStream_t stream) {
-  const bool v4 = msda::vec4<T>(C, img) && msda::vec4<T>(C, og);
-  const int vec = v4 ? 4 : 1;
-  const int G = msda::group_lanes(C, vec);
-  const bool merge = C <= G * vec;
-  const int64_t num_tasks = (int64_t)B * N * H;
-  const int64_t per_block = (int64_t)MSDA_WARPS_PER_BLOCK * (32 / G);
-  const int64_t blocks = (num_tasks + per_block - 1) / per_block;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  auto run = v4 ? (merge ? launch<T, 4, true> : launch<T, 4, false>)
-                : (merge ? launch<T, 1, true> : launch<T, 1, false>);
+  const int num_tasks = B * N * H;
+  const BwdPlan plan = plan_for<T>(img, pts, wts, og, num_tasks, C, L, P);
+  if (plan.smem == 0) return (int)cudaErrorInvalidConfiguration;
+  const bool merge = plan.steps == 1;
+  auto run = plan.vec == 4
+                 ? (merge ? launch<T, 4, true> : launch<T, 4, false>)
+                 : (merge ? launch<T, 1, true> : launch<T, 1, false>);
   // the rounding errors' half of img_grad
   const int64_t lo = (int64_t)B * I * H * C;
-  run(img, pts, wts, og, img_grad, pts_grad, wts_grad, levels, lo,
-      num_tasks, blocks, I, N, H, C, L, P, G, zeros, align_corners, stream);
-  return (int)cudaGetLastError();
+  return run(img, pts, wts, og, img_grad, pts_grad, wts_grad, levels, plan,
+             lo, num_tasks, I, N, H, C, L, P, zeros, align_corners, stream);
 }
 
 }  // namespace
@@ -386,7 +714,10 @@ int msda_bwd_launch(int dtype, const void* img, const void* pts,
   const int64_t pixels =
       msda::fill_levels(levels, static_cast<const int*>(level_hw), L);
   if (pixels != I) return (int)cudaErrorInvalidValue;
-  if ((int64_t)B * N * H == 0) return (int)cudaSuccess;
+  // a task a (b, n, h); past 2^31 - 1 the points would be too (L * P >= 1)
+  const int64_t tasks = (int64_t)B * N * H;
+  if (tasks == 0) return (int)cudaSuccess;
+  if (tasks > INT_MAX) return (int)cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool z = zeros != 0;
@@ -406,6 +737,32 @@ int msda_bwd_launch(int dtype, const void* img, const void* pts,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The plan of a launch on these arguments (msda_bwd_plan.cuh), written into
+// plan[11] in BwdPlan's order.  Returns cudaErrorInvalidValue for a dtype
+// or shape msda_bwd_launch refuses.
+int msda_bwd_plan(int dtype, const void* img, const void* pts,
+                  const void* wts, const void* og, int B, int N, int H,
+                  int C, int L, int P, int* plan) {
+  const int64_t tasks = (int64_t)B * N * H;
+  if (L < 1 || L > MSDA_MAX_LEVELS || P < 1 || C < 1 || tasks > INT_MAX ||
+      tasks < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int t = (int)tasks;
+  BwdPlan p;
+  switch (dtype) {
+    case 0: p = plan_for<float>(img, pts, wts, og, t, C, L, P); break;
+    case 1: p = plan_for<__half>(img, pts, wts, og, t, C, L, P); break;
+    case 2: p = plan_for<__nv_bfloat16>(img, pts, wts, og, t, C, L, P); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const int fields[11] = {p.lanes,  p.vec,    p.tile,   p.chunk,
+                          p.stride, p.chunks, p.steps,  p.vw_pts,
+                          p.vw_wts, p.smem,   p.tiles};
+  for (int i = 0; i < 11; ++i) plan[i] = fields[i];
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

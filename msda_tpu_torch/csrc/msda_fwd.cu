@@ -89,74 +89,28 @@
 #include <climits>
 #include <cstdint>
 
+#include "msda_async.cuh"
 #include "msda_fwd_plan.cuh"
 #include "msda_geometry.cuh"
 #include "msda_lanes.cuh"
 
 namespace {
 
+using msda::arrive_after_copies;
+using msda::barrier_init;
+using msda::copy_async;
 using msda::divide;
 using msda::fast_div;
 using msda::FastDiv;
 using msda::FwdPlan;
 using msda::LevelTable;
 using msda::load_vec;
+using msda::multiprocessors;
+using msda::smem_address;
 using msda::store_vec;
+using msda::wait_phase;
 
 constexpr int kThreads = MSDA_FWD_WARPS * 32;
-
-__device__ __forceinline__ uint32_t smem_address(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One asynchronous copy of vw = 4, 2 or 1 floats into shared memory.
-__device__ __forceinline__ void copy_async(const uint32_t dst,
-                                           const float* src, const int vw) {
-  if (vw == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-  } else if (vw == 2) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void barrier_init(const uint32_t bar,
-                                             const uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// The barrier's pending count falls by one when this thread's earlier
-// copies have landed.
-__device__ __forceinline__ void arrive_after_copies(const uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void wait_phase(const uint32_t bar,
-                                           const uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
 
 // The divisors a task's indices need, as multiplies and shifts.
 struct Divisors {
@@ -364,22 +318,6 @@ int allow_shared() {
     done.fetch_or(bit);
   }
   return (int)cudaSuccess;
-}
-
-// Multiprocessors of the current device, asked once a device.
-int multiprocessors() {
-  static std::atomic<int> count[64];
-  int device = 0;
-  if (cudaGetDevice(&device) != cudaSuccess) return 0;
-  int n = count[device & 63].load();
-  if (n == 0) {
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-        cudaSuccess) {
-      return 0;
-    }
-    count[device & 63].store(n);
-  }
-  return n;
 }
 
 template <typename T, int VEC>

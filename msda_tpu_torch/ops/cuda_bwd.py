@@ -22,7 +22,9 @@ once to ``img``'s dtype; the point and weight gradients are computed
 in f32 and cast to the dtypes of ``sampling_points`` and
 ``attention_weights``, as the JAX wrapper casts them.  The library is built
 at first use (``_build.load_library``), and each launch adds one to
-``LAUNCHES``.
+``LAUNCHES``.  ``launch_plan`` returns the tile, point chunks, channel
+steps, copy widths, shared memory and tiles that a launch on given inputs
+uses (``csrc/msda_bwd_plan.cuh``).
 """
 
 from __future__ import annotations
@@ -35,13 +37,17 @@ from . import _build, launches
 from .cuda_fwd import DTYPE_CODES, check_inputs
 from .reference import _geometry, level_shapes, native_msda_backward
 
-__all__ = ["LAUNCHES", "msda_bwd", "load", "plain_merged_bwd"]
+__all__ = ["LAUNCHES", "msda_bwd", "load", "plain_merged_bwd",
+           "launch_plan", "PLAN_FIELDS"]
 
 KERNEL = "msda_bwd"
 
 # Number of kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
 launches.register(__name__)
+# msda::BwdPlan's fields, in the order msda_bwd_plan writes them
+PLAN_FIELDS = ("lanes", "vec", "tile", "chunk", "stride", "chunks", "steps",
+               "vw_pts", "vw_wts", "smem", "tiles")
 
 
 def load() -> ctypes.CDLL:
@@ -110,6 +116,31 @@ def msda_bwd(
     return (torch.add(img_grad[0], img_grad[1]).to(img.dtype),
             pts_grad.to(sampling_points.dtype),
             wts_grad.to(attention_weights.dtype))
+
+
+def launch_plan(img, img_shapes, sampling_points, attention_weights,
+                out_grad) -> dict:
+    """The plan of K2's launch on these inputs, ``{field: int}`` over
+    ``PLAN_FIELDS``: the lanes a task and channels a lane, the tile of
+    tasks a block, the points staged at once, the chunks a task, the
+    channel steps a point, the floats a copy of the points and of the
+    weights, the dynamic shared bytes a block and the tiles of the launch
+    (``csrc/msda_bwd_plan.cuh``)."""
+    _, pts, wts = check_inputs(img, img_shapes, sampling_points,
+                               attention_weights, "border")
+    B, N, H, L, P, _ = pts.shape
+    C = img.shape[-1]
+    fn = load().msda_bwd_plan
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    fn.restype = ci
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    err = fn(DTYPE_CODES[img.dtype], img.data_ptr(), pts.data_ptr(),
+             wts.data_ptr(), out_grad.data_ptr(), B, N, H, C, L, P,
+             ctypes.addressof(plan))
+    if err != 0:
+        raise RuntimeError(f"msda_bwd_plan failed: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, plan))
 
 
 def plain_merged_bwd(img, img_shapes, sampling_points, attention_weights,

@@ -40,7 +40,12 @@ N of T - 1, T, T + 1 and 2T + 1 (T from ``cuda_fwd.launch_plan``), rows of
 points that are not a multiple of 16 bytes (L * P = 3), 16 levels of one
 and of four points (two chunks of points; at C = 160 two channel passes
 too), 33 points a task at C = 30, points and weights off an 8-byte
-boundary (4-byte copies) and a head of about 94 tiles.
+boundary (4-byte copies) and a head of about 94 tiles.  K2 walks tiles of
+T consecutive (b, n, h) tasks on the same pipeline: its cases add T - 1,
+T, T + 1 and 2T + 1 tasks (T from ``cuda_bwd.launch_plan``), the same odd
+rows and chunks (at C = 160 with channel steps), misaligned points and
+weights, about 375 tiles of two heads, and the decoder's call (N = 300
+against the encoder's 22,223 pixels: fewer tiles than the grid).
 """
 
 from itertools import product
@@ -343,6 +348,113 @@ def test_backward_kernel_with_every_point_at_one_place(
     assert want[0].float().abs().max() > 10
     _check_bwd(cuda_bwd.msda_bwd(img, shapes, pts, wts, og, *mode), want,
                dtype)
+
+
+def _bwd_inputs(device, dtype, shapes, N, C, P, B=2, H=3, seed=31):
+    """Seeded inputs on ``shapes`` with out-of-bounds points and an
+    out_grad."""
+    img, shapes, pts, wts = _fwd_inputs(device, dtype, shapes, N, C, P, B=B,
+                                        H=H, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    og = torch.from_numpy(rng.standard_normal(
+        (B, N, H, C), dtype=np.float32)).to(device, dtype)
+    return img, shapes, pts, wts, og
+
+
+def _check_bwd_call(img, shapes, pts, wts, og, dtype, mode):
+    before = cuda_bwd.LAUNCHES
+    got = cuda_bwd.msda_bwd(img, shapes, pts, wts, og, *mode)
+    torch.cuda.synchronize()
+    assert cuda_bwd.LAUNCHES == before + 1
+    _check_bwd(got, native_msda_backward(img, shapes, pts, wts, og, *mode),
+               dtype)
+
+
+# the encoder's pyramid at 800x1333 (I = 22,223)
+SLICE = [(100, 167), (50, 84), (25, 42), (13, 21)]
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("edge", ["T-1", "T", "T+1", "2T+1"])
+def test_backward_kernel_at_tile_edges(device, dtype, padding_mode,
+                                       align_corners, edge):
+    """K2 gathers T consecutive (b, n, h) tasks a block: T - 1, T, T + 1
+    and 2T + 1 tasks put the launch's end inside a tile, on its end and
+    past it, and leave a ragged last tile."""
+    img, shapes, pts, wts, og = _bwd_inputs(device, dtype, PYRAMID, 1, 32,
+                                            4, B=1, H=1)
+    T = cuda_bwd.launch_plan(img, shapes, pts, wts, og)["tile"]
+    n = {"T-1": T - 1, "T": T, "T+1": T + 1, "2T+1": 2 * T + 1}[edge]
+    img, shapes, pts, wts, og = _bwd_inputs(device, dtype, PYRAMID, n, 32,
+                                            4, B=1, H=1)
+    assert cuda_bwd.launch_plan(img, shapes, pts, wts, og)["tiles"] == (
+        -(-n // T))
+    _check_bwd_call(img, shapes, pts, wts, og, dtype,
+                    (padding_mode, align_corners))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("case", ROW_CASES,
+                         ids=lambda c: f"L{len(c['shapes'])}P{c['P']}"
+                                       f"C{c['C']}")
+def test_backward_kernel_with_odd_rows_and_point_chunks(
+        device, dtype, padding_mode, align_corners, case):
+    """Rows of points that are not a multiple of 16 bytes (8- and 4-byte
+    copies), 16 levels of one point, two chunks of points, channel steps
+    with chunks (C = 160: every point adds its own terms) and one channel a
+    lane across chunks of 32 and 1."""
+    img, shapes, pts, wts, og = _bwd_inputs(device, dtype, case["shapes"],
+                                            45, case["C"], case["P"])
+    plan = cuda_bwd.launch_plan(img, shapes, pts, wts, og)
+    L, P = len(shapes), case["P"]
+    assert plan["chunks"] == -(-L * P // plan["chunk"])
+    assert plan["steps"] == -(-case["C"] // (plan["lanes"] * plan["vec"]))
+    if L * P % 2:
+        assert plan["vw_pts"] == 2 and plan["vw_wts"] == 1
+    _check_bwd_call(img, shapes, pts, wts, og, dtype,
+                    (padding_mode, align_corners))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_backward_kernel_where_a_head_spans_many_tiles(device, dtype):
+    """3,001 queries of 2 heads (6,002 tasks a batch, about 375 tiles of
+    16) on a 64-base pyramid, so that a persistent block walks many
+    tiles."""
+    shapes = [(64, 64), (32, 32), (16, 16), (8, 8)]
+    img, shapes, pts, wts, og = _bwd_inputs(device, dtype, shapes, 3001, 32,
+                                            4, B=2, H=2)
+    for mode in MODES:
+        _check_bwd_call(img, shapes, pts, wts, og, dtype, mode)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_backward_kernel_takes_misaligned_points_and_weights(device, dtype):
+    """Points and weights whose storage starts off an 8-byte boundary are
+    copied 4 bytes at a time."""
+    img, shapes, pts, wts, og = _bwd_inputs(device, dtype, PYRAMID, 77, 32,
+                                            4)
+    pts, wts = _misaligned(pts), _misaligned(wts)
+    plan = cuda_bwd.launch_plan(img, shapes, pts, wts, og)
+    assert plan["vw_pts"] == plan["vw_wts"] == 1
+    for mode in MODES:
+        _check_bwd_call(img, shapes, pts, wts, og, dtype, mode)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+def test_backward_kernel_at_the_decoder_shape(device, dtype, padding_mode,
+                                              align_corners):
+    """The train step's decoder call: 300 queries against the encoder's
+    22,223 pixels, 8 heads, 4,800 tasks: 300 tiles, fewer than the
+    persistent grid holds."""
+    img, shapes, pts, wts, og = _bwd_inputs(device, dtype, SLICE, 300, 32, 4,
+                                            B=2, H=8)
+    plan = cuda_bwd.launch_plan(img, shapes, pts, wts, og)
+    assert plan["tiles"] * plan["tile"] == 2 * 300 * 8
+    _check_bwd_call(img, shapes, pts, wts, og, dtype,
+                    (padding_mode, align_corners))
 
 
 def test_auto_backward_launches_the_backward_kernel_once(device):
