@@ -153,19 +153,13 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       (batch 1, the model's own points) and a coincident case with every
       point of a (b, h) at one place; f32, bf16 and f16; every
       padding_mode x align_corners;
-   b. the refitted routes: ``multiscale_deformable_attention(impl="auto")``
-      forward and backward at the 512-base pyramid, where the router keeps
-      both directions on K1 and K2, and with ``stream.forced()`` at the
-      256-base pyramid (both streamed); launches counted, results against
-      the plain versions;
+   b. the op's two paths: ``multiscale_deformable_attention(impl="auto")``
+      forward and backward at the 512-base pyramid, unforced (K1 and K2),
+      and with ``stream.forced()`` at the 256-base pyramid (both
+      streamed); launches counted, results against the plain versions;
    c. K3' against K1 and K4' + K5' against K2, in turns with the plain
       versions, at the 256-base pyramid in f32 and bf16;
-   d. the router's sweep: pyramid bases 64, 128, 256 and 512 (B=4,
-      N=10,000, uniform points) and encoder layer 0's call of the full-width
-      model at 800x1333, 1200x2000 and 1600x2666 (batch 2) and at 2560x4266
-      and 3200x5332 (batch 1), f32 and bf16: streamed against resident
-      calls, and the router's choice beside both;
-   e. one ``--pyramid big`` run of ``python -m msda_tpu_torch.benchmark``
+   d. one ``--pyramid big`` run of ``python -m msda_tpu_torch.benchmark``
       at N=10,000.
 8. Export and profiling (``ops/library.py``, ``utils/export.py``,
    ``utils/profile.py``):
@@ -277,9 +271,6 @@ IMAGE_HW = (800, 1333)
 # pyramid is 51.1 MB at 1200x2000 and 90.9 MB at 1600x2666, past the L2
 MODEL_SIZES = ((800, 1333), (1200, 2000), (1600, 2666))
 BATCH = 2
-# larger inputs, at batch 1: one image's f32 pyramid and gradient take 465
-# and 726 MB, 9 and 14 times an H100's L2 (the 512-base pyramid: 713 MB)
-LARGE_MODEL_SIZES = ((2560, 4266), (3200, 5332))
 MODEL = dict(num_classes=91, in_channels=IN_CHANNELS, emb_dim=256,
              num_heads=8, num_points=4, num_queries=300,
              num_encoder_layers=6, num_decoder_layers=6, ffn_dim=1024,
@@ -296,7 +287,8 @@ SIXTEEN_LEVELS = tuple((64 >> (lvl // 4), 48 >> (lvl // 4))
                        for lvl in range(16))
 # scripts/benchmark.py --pyramid big: I = 87,040, 356 MB of f32 img at B=4
 BIG_SHAPES = ((256, 256), (128, 128), (64, 64), (32, 32))
-# the 512-base pyramid, where the router streams the backward (phase 7b)
+# the 512-base pyramid, past the L2, where an unforced call still runs K1
+# and K2 (phase 7b)
 PATH_SHAPES = tuple((512 >> i, 512 >> i) for i in range(4))
 # training: 50 target slots per image, a seeded ~7 of them real (COCO's
 # mean); the Deformable DETR optimizer (AdamW, lr 2e-4, weight decay 1e-4)
@@ -663,7 +655,7 @@ def model_call(hw=IMAGE_HW, batch: int = BATCH, call: int = 0,
     full-width two-stage model (0: encoder layer 0, 6: decoder layer 0) on
     a seeded pyramid for an input of ``hw`` pixels: the sampling pattern of
     the main path.  Spied at the op (``models.attention`` calls
-    ``multiscale_deformable_attention``), so that the router's choice does
+    ``multiscale_deformable_attention``), so that the kernels it runs do
     not matter; the forward stops at that call.  Returns ``(img, shapes,
     pts, wts)``, f32 and contiguous."""
     shapes = model_shapes(hw)
@@ -909,7 +901,7 @@ def serve(smi: str) -> tuple[dict, dict]:
     counts = launches()
     if forwards == 0:
         raise AssertionError("no forward was served")
-    # Deformable DETR's pyramid stays on K1 (stream.use_streaming_fwd)
+    # unforced, every call runs K1 (stream.FORCE)
     check_path_launches("serving", counts, {
         cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD,
         cuda_norm.KERNEL: norms})
@@ -1300,7 +1292,7 @@ def train(smi: str) -> tuple[dict, dict]:
                 raise AssertionError(f"{name}: a parameter is not finite")
         del model, optimizer, step
     counts = launches()
-    # the pyramid stays on K1/K2 in f32 and bf16 (the L2 routers)
+    # unforced, every call runs K1/K2 in f32 and bf16 (stream.FORCE)
     check_path_launches("training", counts, expected)
     log(f"training: {steps} steps, launches {counts}; per f32 step "
         f"{per_step}")
@@ -2242,7 +2234,6 @@ STREAM_CASES = {
     "coincident": dict(shapes=REF_SHAPES, B=2, N=10000, H=8, C=32, P=4,
                        seed=55, coincident=True, plan=None),
 }
-SWEEP_BASES = (64, 128, 256, 512)
 
 
 def stream_inputs(shapes, B, C, seed, N=None, H=8, P=4, oob=False,
@@ -2360,13 +2351,9 @@ def run_path(name: str, shapes, B: int, seed: int, expected: dict,
     launch count over the run."""
     img, shapes, pts, wts, og = reference_workload(
         10000, torch.float32, shapes, seed=seed, batch=B, device=DEVICE)
-    _, _, H, C = img.shape
-    l2 = stream.l2_bytes(DEVICE)
-    routes = (stream.use_streaming_fwd(shapes, H, C, img.dtype, l2),
-              stream.use_streaming_bwd(shapes, H, C, img.dtype, l2))
     size = img[0].numel() * img.element_size()
-    log(f"{name}: one image's pyramid {size} bytes, L2 {l2} bytes; streams "
-        f"(fwd, bwd) {routes}")
+    log(f"{name}: one image's pyramid {size} bytes; stream.FORCE "
+        f"{stream.FORCE}")
     steps = 4
     times = []
     torch.cuda.synchronize()
@@ -2409,8 +2396,8 @@ def run_path(name: str, shapes, B: int, seed: int, expected: dict,
 
 
 def large_pyramid_path(smi: str) -> dict:
-    """Phase 7b: the refitted routes.  At the 512-base pyramid (B=2) the
-    router keeps the forward on K1 and the backward on K2; with
+    """Phase 7b: the op's two paths.  At the 512-base pyramid (B=2) an
+    unforced call runs K1 forward and K2 backward; with
     ``stream.forced()``, at the 256-base pyramid (B=4), both go to the
     streamed kernels.  Returns {path: every kernel's launch count}."""
     auto = run_path("large-pyramid path", PATH_SHAPES, 2, 60, {
@@ -2484,68 +2471,8 @@ def time_stream_kernels(smi: str) -> dict:
     return times
 
 
-def sweep_cases():
-    """Phase 7d's points: (name, pyramid, f32 inputs) for the uniform
-    bases (B=4, N=10,000) and encoder layer 0's call of the full-width
-    model at each of MODEL_SIZES (batch 2) and LARGE_MODEL_SIZES (batch 1),
-    the model's own points."""
-    for base in SWEEP_BASES:
-        shapes = tuple((base >> i, base >> i) for i in range(4))
-        img, _, pts, wts, og = reference_workload(
-            10000, torch.float32, shapes, seed=70, device=DEVICE)
-        yield f"base {base}", shapes, (img, pts, wts, og)
-    for sizes, batch in ((MODEL_SIZES, BATCH), (LARGE_MODEL_SIZES, 1)):
-        for hw in sizes:
-            inputs = stream_inputs(model_shapes(hw), B=batch, C=32, seed=71,
-                                   model=hw)
-            yield f"model {hw[0]}x{hw[1]}", model_shapes(hw), inputs
-
-
-def sweep_pyramids(smi: str) -> list:
-    """Phase 7d: streamed against resident calls (the wrappers, binning
-    and buffers included), in turns (resident, streamed, streamed,
-    resident), and the router's choice beside both times.  Returns rows
-    (point, dtype, direction, resident ms, streamed ms, streams)."""
-    rows = []
-    l2 = stream.l2_bytes(DEVICE)
-    for name, shapes, (img32, pts, wts, og32) in sweep_cases():
-        H, C = img32.shape[2], img32.shape[3]
-        for dtype in (torch.float32, torch.bfloat16):
-            img, og = img32.to(dtype), og32.to(dtype)
-            line = []
-            for direction, resident, streamed, route in (
-                    ("fwd", lambda: cuda_fwd.msda_fwd(img, shapes, pts, wts),
-                     lambda: cuda_stream.msda_stream_fwd(img, shapes, pts,
-                                                         wts),
-                     stream.use_streaming_fwd),
-                    ("bwd", lambda: cuda_bwd.msda_bwd(img, shapes, pts, wts,
-                                                      og),
-                     lambda: cuda_stream.msda_stream_bwd(img, shapes, pts,
-                                                         wts, og),
-                     stream.use_streaming_bwd)):
-                r1 = time_ms(resident, 5)
-                s1 = time_ms(streamed, 5)
-                s2 = time_ms(streamed, 5)
-                r2 = time_ms(resident, 5)
-                r, t = (r1 + r2) / 2, (s1 + s2) / 2
-                streams = route(shapes, H, C, dtype, l2)
-                picked, best = (t if streams else r), min(r, t)
-                rows.append((name, dtype, direction, r, t, streams))
-                line.append(
-                    f"{direction} {'K1' if direction == 'fwd' else 'K2'} "
-                    f"{r:.4f} / streamed {t:.4f} ms, router "
-                    f"{'streams' if streams else 'resident'} "
-                    f"({100 * (picked / best - 1):+.1f}% of the faster)")
-            log(f"sweep {name:16s} (I={img.shape[1]}, B={img.shape[0]}, img "
-                f"{img.numel() * img.element_size() / 1e6:.1f} MB) "
-                f"{str(dtype)[6:]:8s}: {'; '.join(line)} on {smi}")
-            del img, og
-        del img32, pts, wts, og32
-    return rows
-
-
 def benchmark_row(smi: str) -> None:
-    """Phase 7e: the benchmark entry point at the 256-base pyramid."""
+    """Phase 7d: the benchmark entry point at the 256-base pyramid."""
     rows = benchmark.main(["--pyramid", "big", "--queries", "10000",
                            "--impls", "cuda", "reference", "--bf16",
                            "--out", os.path.join(os.path.dirname(
@@ -3109,7 +3036,6 @@ def main() -> None:
     errs[cuda_norm.KERNEL] = norm["err"]
     time_big_pyramid(smi)
     stream_times = time_stream_kernels(smi)
-    sweep_pyramids(smi)
     benchmark_row(smi)
     opcheck_on_card()
     by_path["export"] = export_path(

@@ -7,8 +7,11 @@ the operators' first CUDA call, and build their kernels at first use, so
 that this package imports on machines without a GPU or ``nvcc``.
 ``library`` also registers ``add_layer_norm``, the detector's residual add
 + LayerNorm, and imports its wrapper ``cuda_norm`` (whose plain version is
-the operator's CPU implementation); it too builds its kernel at first use.  ``stream`` holds the large-pyramid path's band plan, L2
-router and plain streamed versions.
+the operator's CPU implementation); it too builds its kernel at first use.
+``stream`` holds the large-pyramid path's band plan, ``FORCE`` (set by
+``stream.forced()`` or ``benchmark.py --force-stream``, the one switch
+that sends the operators' CUDA calls to ``cuda_stream``) and plain
+streamed versions.
 """
 
 from .msda import multiscale_deformable_attention, resolved_impl

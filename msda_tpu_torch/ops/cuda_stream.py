@@ -5,7 +5,7 @@ The kernels replace the TPU kernels of ``msda_tpu/ops/pallas_stream.py``:
 ``msda_stream_bwd`` (K4' + K5' as one kernel, for ``_stream_bwd_pts_kernel``
 :330 and ``_stream_bwd_img_kernel`` :411), with the binning kernels they
 share (``bin_samples``, for the band selection of ``_band_factors`` :187).
-``stream.py`` holds the band plan, the router and the plain versions
+``stream.py`` holds the band plan, ``FORCE`` and the plain versions
 (``stream.plain_stream_fwd`` / ``plain_stream_bwd`` / ``sample_bins``).
 
 What the source's note sets out, measured on an H100 (``PERF.md``): the
@@ -22,7 +22,8 @@ add their ``img_grad`` terms once, and stores each sample's point and
 weight gradients at its index.  As whole calls (binning, buffers and
 casts included) both are faster than the first kernels at every size
 measured, but K1 and K2 stay faster on the model's own points, so the
-router sends a call here only under ``stream.FORCE``.
+operators send a call here only while ``stream.FORCE`` is set
+(``stream.forced()``, ``benchmark.py --force-stream``).
 
 The wrappers check device, dtype, shape and contiguity (``cuda_fwd``'s
 checks, plus the plan's) and raise on anything the kernels do not take;

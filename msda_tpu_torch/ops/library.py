@@ -18,12 +18,12 @@ imported this package.
 ``level_shapes`` is the flat ``[h_0, w_0, h_1, w_1, ...]``.  The
 implementations, by the device of the tensors:
 
-    CUDA: the hand-written kernels.  Each direction asks its router
-          (``stream.use_streaming_fwd`` / ``_bwd`` on the card's L2) and
-          launches K1 or K3' forward, K2 or K4' + K5' backward, through
-          the wrappers of ``cuda_fwd``, ``cuda_stream`` and ``cuda_bwd``,
-          which check the inputs, count their launches and raise on a
-          failed build or launch.  No fallback.
+    CUDA: the hand-written kernels: K1 forward and K2 backward, or K3'
+          and K4' + K5' when ``stream.FORCE`` is set (``stream.forced()``,
+          ``benchmark.py --force-stream``), through the wrappers of
+          ``cuda_fwd``, ``cuda_bwd`` and ``cuda_stream``, which check the
+          inputs, count their launches and raise on a failed build or
+          launch.  No fallback.
     CPU:  the plain versions, ``reference.native_multiscale_deformable_attention``
           and ``reference.native_msda_backward``: what the kernels compute,
           so that ``torch.library.opcheck``, export and the tests run
@@ -64,9 +64,9 @@ dtype, ``F.layer_norm`` in f32, a cast back.  It has no autograd formula:
 
 The CUDA implementations run in the host spans ``msda.fwd`` and
 ``msda.bwd`` (``utils.profile.annotate``; recorded only while a profiler
-runs, and never a device span): the op's own host work, its input checks,
-the router and the launch, apart from the dispatcher and autograd around
-it.  The backward's span is on autograd's thread.
+runs, and never a device span): the op's own host work, its input checks
+and the launch, apart from the dispatcher and autograd around it.  The
+backward's span is on autograd's thread.
 """
 
 from __future__ import annotations
@@ -110,15 +110,10 @@ def _fwd_cuda(img, sampling_points, attention_weights, level_shapes,
     from . import cuda_fwd, cuda_stream
 
     with annotate("msda.fwd"):
-        shapes = _pairs(level_shapes)
-        _, _, H, C = img.shape
-        if stream.use_streaming_fwd(shapes, H, C, img.dtype,
-                                    stream.l2_bytes(img.device)):
-            fwd = cuda_stream.msda_stream_fwd
-        else:
-            fwd = cuda_fwd.msda_fwd
-        return fwd(img, shapes, sampling_points, attention_weights,
-                   padding_mode, align_corners)
+        fwd = (cuda_stream.msda_stream_fwd if stream.FORCE
+               else cuda_fwd.msda_fwd)
+        return fwd(img, _pairs(level_shapes), sampling_points,
+                   attention_weights, padding_mode, align_corners)
 
 
 def _bwd_cuda(img, sampling_points, attention_weights, out_grad,
@@ -126,15 +121,10 @@ def _bwd_cuda(img, sampling_points, attention_weights, out_grad,
     from . import cuda_bwd, cuda_stream
 
     with annotate("msda.bwd"):
-        shapes = _pairs(level_shapes)
-        _, _, H, C = img.shape
-        if stream.use_streaming_bwd(shapes, H, C, img.dtype,
-                                    stream.l2_bytes(img.device)):
-            bwd = cuda_stream.msda_stream_bwd
-        else:
-            bwd = cuda_bwd.msda_bwd
-        return bwd(img, shapes, sampling_points, attention_weights,
-                   out_grad, padding_mode, align_corners)
+        bwd = (cuda_stream.msda_stream_bwd if stream.FORCE
+               else cuda_bwd.msda_bwd)
+        return bwd(img, _pairs(level_shapes), sampling_points,
+                   attention_weights, out_grad, padding_mode, align_corners)
 
 
 def _fwd_cpu(img, sampling_points, attention_weights, level_shapes,

@@ -9,13 +9,12 @@ The counterpart of ``msda_tpu/ops/msda.py``.  Implementations:
                  formula, the backward K2 (``cuda_bwd.py``), which saves
                  only the inputs (the backward rematerializes the
                  sampling) and is first-order only.  It takes CUDA tensors
-                 in bf16, f16 or f32 and always computes in f32.  The
-                 forward and the backward each ask their own router
-                 (``stream.use_streaming_fwd`` / ``_bwd``), as the JAX
-                 forward and backward route to ``pallas_stream``; it sends
-                 them to the streamed kernels (``cuda_stream.py``) only
-                 under ``stream.FORCE``, since K1 and K2 were the faster on
-                 the model's own points at every pyramid measured.
+                 in bf16, f16 or f32 and always computes in f32.  Both
+                 directions go to the streamed kernels (``cuda_stream.py``)
+                 only while ``stream.FORCE`` is set (``stream.forced()``,
+                 ``benchmark.py --force-stream``): K1 and K2 were the
+                 faster on the model's own points at every pyramid
+                 measured.
     "reference": the plain gather-based version (``reference.py``); any
                  device, f64-capable, differentiable through autograd.
     "fused":     an alias of "reference".  The JAX package's "fused" is an

@@ -1,4 +1,4 @@
-"""The large-pyramid path: band plan, L2 router and plain streamed versions.
+"""The large-pyramid path: band plan, ``FORCE`` and plain streamed versions.
 
 The counterpart of ``msda_tpu/ops/pallas_stream.py``.  On the TPU the
 streamed kernels K3-K5 exist because the resident kernels stage the whole
@@ -31,22 +31,20 @@ A level that fits stays whole; otherwise full-width bands of at least
 ``MIN_BAND_ROWS`` rows; otherwise bands of ``MIN_BAND_ROWS`` rows cut into
 columns.  A level whose tile cannot hold even two columns raises.
 
-The router (:func:`use_streaming_fwd` / :func:`use_streaming_bwd`, the
-counterparts of ``pallas_stream.use_streaming_fwd`` :130 / ``_bwd`` :143)
-is fitted to whole calls timed on the card (``chip_smoke.py`` phase 7d;
-``PERF.md``), not a port of the VMEM model.  It cannot see the points, so
-where the model's own points and uniform ones disagree it follows the
-model's.  Measured on an H100 (50 MiB L2), from the reference pyramid to
-the 512-base one and on the full-width model's own points from 800x1333
-to 3200x5332 (one image's f32 pyramid and gradient 46 to 726 MB): the
+K1 and K2 serve every call unless ``FORCE`` is set (by :func:`forced`
+or ``python -m msda_tpu_torch.benchmark --force-stream``, the
+counterpart of ``scripts/benchmark.py:_force_stream``): no rule looks at
+the call.  The JAX package routes each direction by its VMEM model
+(``pallas_stream.py`` :130, :143); here a sweep of whole calls timed on
+the card settled it (``PERF.md`` §6).
+Measured on an H100 (50 MiB L2), from the reference pyramid to the
+512-base one and on the full-width model's own points from 800x1333 to
+3200x5332 (one image's f32 pyramid and gradient 46 to 726 MB): the
 streamed forward with its binning took 1.5-2.3x K1's time everywhere; the
 streamed backward took 2-17% more than K2 on the model's points
 everywhere, while on uniform points at the 256- and 512-base pyramids K2
 took 11-25% more.  The model's neighbouring queries share pixels, so K1
-and K2 keep hitting the L2 far past its size.  So neither direction
-streams unless ``FORCE`` (or :func:`forced`) routes every call to the
-streamed kernels, the counterpart of
-``scripts/benchmark.py:_force_stream``.
+and K2 keep hitting the L2 far past its size.
 
 The plain versions (:func:`plain_stream_fwd`, :func:`plain_stream_bwd`)
 compute what the kernels compute with the same banding: the same keys,
@@ -60,7 +58,6 @@ against them.
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import torch
 
@@ -75,9 +72,6 @@ __all__ = [
     "check_plan",
     "tile_bytes",
     "num_bins",
-    "use_streaming_fwd",
-    "use_streaming_bwd",
-    "l2_bytes",
     "forced",
     "sample_bins",
     "plain_stream_fwd",
@@ -166,36 +160,6 @@ def num_bins(img_shapes, plan) -> int:
     """Tiles of one (b, h): the bins the samples are sorted into."""
     return sum(-(-h // yb) * -(-w // xb)
                for (h, w), (yb, xb) in zip(level_shapes(img_shapes), plan))
-
-
-def use_streaming_fwd(img_shapes, heads, channels, dtype, l2: int) -> bool:
-    """Stream the forward of a call on these pyramid shapes, heads,
-    channels and img dtype on a card of ``l2`` bytes of L2: only when
-    ``FORCE`` is set, since K1 was the faster at every pyramid measured."""
-    del img_shapes, heads, channels, dtype, l2
-    return FORCE
-
-
-def use_streaming_bwd(img_shapes, heads, channels, dtype, l2: int) -> bool:
-    """As :func:`use_streaming_fwd`, for the backward: only when ``FORCE``
-    is set, since K2 was the faster on the model's own points at every
-    size measured."""
-    del img_shapes, heads, channels, dtype, l2
-    return FORCE
-
-
-@functools.lru_cache(maxsize=None)
-def _l2_of(index: int) -> int:
-    return torch.cuda.get_device_properties(index).L2_cache_size
-
-
-def l2_bytes(device) -> int:
-    """The L2 cache size of a CUDA device, in bytes."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the router needs a CUDA device, got {device}")
-    return _l2_of(torch.cuda.current_device() if device.index is None
-                  else device.index)
 
 
 @contextlib.contextmanager

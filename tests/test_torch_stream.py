@@ -5,9 +5,11 @@ against, are held here against the JAX streamed kernels K3-K5
 (``pallas_stream.stream_fwd`` / ``stream_bwd``) run by the Pallas
 interpreter in exact f32 (``scheme="highest"``), across several bands per
 level, and against the port's gather versions for band heights of 1, 2 and
-the whole level, and for column tiles.  Also: the band plan and the L2
-router at a given L2 size, the binning's invariant, the op's CPU dispatch,
-``utils.bench`` and ``python -m msda_tpu_torch.benchmark`` on the CPU.
+the whole level, and for column tiles.  Also: the band plan, the binning's
+invariant, the operators' CUDA implementations with the kernels' wrappers
+replaced by recorders (K1 and K2 unless ``stream.FORCE``), the op's CPU
+dispatch, ``utils.bench`` and ``python -m msda_tpu_torch.benchmark`` on the
+CPU.
 
 Tolerances, as ``tests/test_stream.py``: 1e-5 on the output, the image and
 the weight gradients, 1e-4 on the point gradients (sums of terms as large as
@@ -30,7 +32,10 @@ import jax.numpy as jnp  # noqa: E402
 from msda_tpu.ops import pallas_stream as ps  # noqa: E402
 from msda_tpu_torch import benchmark  # noqa: E402
 from msda_tpu_torch.ops import (  # noqa: E402
+    cuda_bwd,
+    cuda_fwd,
     cuda_stream,
+    library,
     multiscale_deformable_attention,
     native_msda_backward,
     native_multiscale_deformable_attention,
@@ -44,7 +49,6 @@ from msda_tpu_torch.utils import (  # noqa: E402
 from utils import get_functional_data  # noqa: E402
 
 MODES = list(product(["border", "zeros"], [False, True]))
-L2 = 52_428_800  # an H100's L2: 50 MiB
 REF = ((64, 64), (32, 32), (16, 16), (8, 8))
 BIG = ((256, 256), (128, 128), (64, 64), (32, 32))
 DETR = ((100, 167), (50, 84), (25, 42), (13, 21))  # 800x1333, strides 8-64
@@ -215,25 +219,46 @@ def test_band_plan_raises_for_a_level_it_cannot_take():
         stream.check_plan(BIG, [(8, 8)] * 3, 32, torch.float32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_router_keeps_the_reference_and_detr_pyramids_resident(dtype):
-    for shapes in (REF, DETR):
-        assert not stream.use_streaming_fwd(shapes, 8, 32, dtype, L2)
-        assert not stream.use_streaming_bwd(shapes, 8, 32, dtype, L2)
+@pytest.fixture
+def recorded(monkeypatch):
+    """The four kernel wrappers replaced by recorders: each call appends
+    ``(wrapper, args)`` and returns the wrapper's name."""
+    calls = []
+    for module, name in ((cuda_fwd, "msda_fwd"), (cuda_bwd, "msda_bwd"),
+                         (cuda_stream, "msda_stream_fwd"),
+                         (cuda_stream, "msda_stream_bwd")):
+        def record(*args, name=name):
+            calls.append((name, args))
+            return name
+        monkeypatch.setattr(module, name, record)
+    return calls
 
 
-def test_router_streams_the_256_base_pyramid():
-    """Since the refit on measured crossovers the 256-base pyramid stays on
-    K1/K2 whatever the L2 (the model's points ran faster on K1/K2 at every
-    size measured, up to 726 MB of f32 pyramid and gradient, 14 L2s), and
-    only ``FORCE`` streams it."""
-    for dtype in (torch.float32, torch.bfloat16):
-        for l2 in (L2, L2 // 4, L2 // 64):
-            assert not stream.use_streaming_fwd(BIG, 8, 32, dtype, l2)
-            assert not stream.use_streaming_bwd(BIG, 8, 32, dtype, l2)
-    with stream.forced():
-        assert stream.use_streaming_fwd(BIG, 8, 32, torch.float32, L2)
-        assert stream.use_streaming_bwd(BIG, 8, 32, torch.float32, L2)
+def _op_calls(shapes, dtype, B, N, mode=("border", False)):
+    """``library._fwd_cuda`` and ``_bwd_cuda`` once each on ``meta``
+    tensors of the op's shapes (H=8, C=32, P=4): nothing is allocated.
+    Returns the inputs and both results."""
+    I = sum(h * w for h, w in shapes)  # noqa: E741
+    img = torch.empty((B, I, 8, 32), dtype=dtype, device="meta")
+    pts = torch.empty((B, N, 8, len(shapes), 4, 2), device="meta")
+    wts = torch.empty((B, N, 8, len(shapes), 4), device="meta")
+    og = torch.empty((B, N, 8, 32), dtype=dtype, device="meta")
+    flat = library.flat_shapes(shapes)
+    out = library._fwd_cuda(img, pts, wts, flat, *mode)
+    grads = library._bwd_cuda(img, pts, wts, og, flat, *mode)
+    return (img, pts, wts, og), out, grads
+
+
+def _assert_reached(calls, fwd, bwd, shapes, inputs, mode=("border", False)):
+    """``calls`` are ``fwd`` then ``bwd``, each with the op's own tensors,
+    the level shapes as pairs and ``mode``."""
+    img, pts, wts, og = inputs
+    assert [name for name, _ in calls] == [fwd, bwd]
+    for (_, args), tensors in zip(calls, ((img, pts, wts),
+                                          (img, pts, wts, og))):
+        assert args[1] == tuple(shapes)
+        assert all(a is t for a, t in zip(args[:1] + args[2:], tensors))
+        assert args[len(tensors) + 1:] == mode
 
 
 def _square(base):
@@ -244,11 +269,12 @@ def _model(h, w):
     return tuple((-(-h // s), -(-w // s)) for s in (8, 16, 32, 64))
 
 
-# The router's sweep (chip_smoke.py phase 7d; NVIDIA H100 80GB HBM3,
-# 700.00 W; PERF.md): whole calls in ms, H=8, C=32, P=4; uniform points
-# at B=4, N=10,000, and encoder layer 0's call of the full-width model at
-# batch 2 (batch 1 at 2560x4266 and 3200x5332).  Per point and dtype: K1,
-# the streamed forward, K2, the streamed backward.
+# The sweep that settled the dispatch (chip_smoke.py's phase 7d up to
+# commit 045b20d; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): whole calls
+# in ms, H=8, C=32, P=4; uniform points at B=4, N=10,000, and encoder
+# layer 0's call of the full-width model at batch 2 (batch 1 at 2560x4266
+# and 3200x5332).  Per point and dtype: K1, the streamed forward, K2, the
+# streamed backward.
 SWEEP = {
     ("base 64", torch.float32): (0.2575, 0.4172, 1.0963, 1.2384),
     ("base 64", torch.bfloat16): (0.2549, 0.4593, 1.1265, 1.3473),
@@ -278,28 +304,60 @@ SWEEP_SHAPES = {"base 64": _square(64), "base 128": _square(128),
 
 
 @pytest.mark.parametrize("point,dtype", sorted(SWEEP, key=str), ids=str)
-def test_router_picks_what_the_sweep_measured(point, dtype):
-    """The rule's choice at every point of the sweep: both directions stay
-    on K1 / K2, the faster calls on the model's points everywhere; uniform
-    points from the 256-base pyramid up, where the streamed backward ran
-    faster, lose what PERF.md records (< 26%)."""
+def test_op_dispatch_follows_the_sweep(recorded, point, dtype):
+    """At every point of the sweep an unforced call runs K1 and K2, the
+    faster calls on the model's points everywhere; uniform points from the
+    256-base pyramid up, where the streamed backward ran faster, lose what
+    PERF.md records (< 26%)."""
     k1, k3, k2, k45 = SWEEP[(point, dtype)]
-    shapes = SWEEP_SHAPES[point]
-    assert not stream.use_streaming_fwd(shapes, 8, 32, dtype, L2)
-    assert not stream.use_streaming_bwd(shapes, 8, 32, dtype, L2)
     assert k1 < k3
     bwd_loss = k2 / min(k2, k45) - 1
     limit = 0.26 if point in ("base 256", "base 512") else 0.0
     assert bwd_loss <= limit, (point, dtype, bwd_loss)
+    shapes = SWEEP_SHAPES[point]
+    if point.startswith("base"):
+        B, N = 4, 10_000
+    else:  # encoder layer 0's call: every pixel a query
+        B, N = (1 if point in ("2560x4266", "3200x5332") else 2,
+                sum(h * w for h, w in shapes))
+    inputs, out, grads = _op_calls(shapes, dtype, B, N)
+    _assert_reached(recorded, "msda_fwd", "msda_bwd", shapes, inputs)
+    assert (out, grads) == ("msda_fwd", "msda_bwd")
 
 
-def test_forced_routes_everything_and_restores():
+@pytest.mark.parametrize("shapes", [REF, DETR, BIG],
+                         ids=["ref", "detr", "big"])
+def test_unforced_op_calls_never_reach_the_streamed_kernels(recorded, shapes):
+    """The reference, Deformable DETR 800x1333 and 256-base pyramids, every
+    padding mode, f32 and bf16: K1 and K2 with the call's own arguments,
+    and no streamed wrapper."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode in MODES:
+            recorded.clear()
+            inputs, _, _ = _op_calls(shapes, dtype, 2, 300, mode)
+            _assert_reached(recorded, "msda_fwd", "msda_bwd", shapes,
+                            inputs, mode)
+
+
+def test_forced_routes_everything_and_restores(recorded):
+    """Under ``stream.forced()`` both directions reach the streamed
+    wrappers with the arguments K1 and K2 get; ``FORCE`` is restored on
+    leaving the block, also when the block raises."""
     assert not stream.FORCE
     with stream.forced():
-        assert stream.use_streaming_fwd(REF, 8, 32, torch.float32, L2)
-        assert stream.use_streaming_bwd(REF, 8, 32, torch.float32, L2)
+        inputs, out, grads = _op_calls(REF, torch.float32, 2, 300)
+    _assert_reached(recorded, "msda_stream_fwd", "msda_stream_bwd", REF,
+                    inputs)
+    assert (out, grads) == ("msda_stream_fwd", "msda_stream_bwd")
     assert not stream.FORCE
-    assert not stream.use_streaming_fwd(REF, 8, 32, torch.float32, L2)
+    with pytest.raises(RuntimeError, match="inside"):
+        with stream.forced():
+            assert stream.FORCE
+            raise RuntimeError("inside the block")
+    assert not stream.FORCE
+    recorded.clear()
+    _op_calls(REF, torch.float32, 2, 300)
+    assert [name for name, _ in recorded] == ["msda_fwd", "msda_bwd"]
 
 
 def test_op_on_cpu_is_reference_even_when_forced():
@@ -321,8 +379,6 @@ def test_streamed_wrappers_refuse_cpu_tensors():
         cuda_stream.msda_stream_fwd(ti, shapes, tp, tw)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_stream.msda_stream_bwd(ti, shapes, tp, tw, tog)
-    with pytest.raises(ValueError, match="CUDA device"):
-        stream.l2_bytes("cpu")
     assert cuda_stream.LAUNCHES == before
 
 
