@@ -36,8 +36,9 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    captured per input signature as a CUDA graph (``utils.graphs.
    graphed``), under inference_mode, in f32 and in bf16: a warm-up, the
    capture (and its replay), then 3 replays, each beside the eager request
-   (``__wrapped__``) in turns; each request must launch K1 12 times (a
-   replay adds the captured launches to the counters).
+   (``__wrapped__``) in turns; each request must launch K1's prologue
+   variant (``msda_fwd_queries``) 12 times and K1 none (a replay adds the
+   captured launches to the counters).
 4b. The graphed request against the eager one on the same inputs, f32 and
    bf16: the capture's replay on request a and a replay on request b, each
    with labels equal and scores and boxes within 1e-5 (f32) or 1e-2 (bf16)
@@ -143,6 +144,17 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
    ``tests/test_torch_norm.py``); each side's device time, a call of a
    CUDA graph of ``NORM_CALLS`` calls replayed, beside the bound (6 D
    bytes a row at 3.35 TB/s).
+6c. K1's prologue variant (``ops/cuda_fwd_queries.py``) on the
+   full-width model's own calls at 800x1333 (encoder layer 0, decoder
+   layer 0), bf16 and f32: against its plain version
+   (``msda_fwd_queries_plain``) within K1's ``TOL``, the JSON row's
+   ``max_abs_err`` (f32, as K1's); against the module's chain
+   (``sampling_plain``) + K1 within one output ulp (the share bitwise
+   equal, the row's ``chain_k1_*``); in f32, each one's distance to the
+   f64 path (``f64_gap``); each side's device time, a call of a CUDA graph
+   of ``QUERIES_GRAPH_CALLS`` calls replayed, in turns, beside the bound
+   (q, the reference points, img's reached rows, the output) and the plain
+   version's time.
 7. The large-pyramid path (``ops/stream.py``, ``ops/cuda_stream.py``):
    a. the binning against ``stream.sample_bins``, and K3' and K4' + K5'
       against ``stream.plain_stream_fwd`` / ``plain_stream_bwd`` at the
@@ -175,12 +187,14 @@ Needs one CUDA card and ``nvcc``; there is no CPU mode.  The phases:
       artifacts with ``load_exported_file`` (the program graphed) and
       serves a warm-up, the capture and phase 4's 3 requests, graphed and
       eager (``__wrapped__``, the program node by node) in turns, each
-      request launching K1 12 times; its graphed detections against the
+      request launching K1's prologue variant 12 times and K1 none; its
+      graphed detections against the
       live graphed request's (labels equal, scores and boxes within 1e-5
       f32, 1e-2 bf16), its graphed mean at most 2x phase 4's live graphed
       mean, the eager mean beside it;
    c. one f32 serving request, eager (``__wrapped__``) and graphed (a
-      replay: 12 K1 in the trace), one replay of the exported bf16 program
+      replay: 12 of K1's prologue variant in the trace, no K1), one replay
+      of the exported bf16 program
       (the device time of its copy kernels, the weight casts among them)
       and one eager f32 training step (``step.__wrapped__``) under
       ``utils.profile.trace``: the window, device busy time and idle
@@ -223,7 +237,8 @@ training step, error, time, plain time
 and bound at the encoder shape for K1/K2, at the 256-base pyramid for
 the streamed kernels, on the costs of a step's first head for the
 auction kernel, and at the 800x1333 encoder call in bf16 for the fused
-add + LayerNorm); the last line is ``{"ok": true, "device": {...}}``.
+add + LayerNorm and K1's prologue variant); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -246,7 +261,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from msda_tpu_torch import autotune, benchmark, capture_trace, detection_parity, headline, memory_report  # noqa: E402
 from msda_tpu_torch.models import DeformableDetr, attention, init_parameters, postprocess  # noqa: E402
 from msda_tpu_torch.models.detr import LAYER_NORM_EPS  # noqa: E402
-from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_norm, cuda_stream, library, stream  # noqa: E402
+from msda_tpu_torch.ops import _build, cuda_bwd, cuda_fwd, cuda_fwd_queries, cuda_norm, cuda_stream, library, stream  # noqa: E402
 from msda_tpu_torch.ops import multiscale_deformable_attention as msda  # noqa: E402
 from msda_tpu_torch.ops import native_msda_backward as plain_msda_bwd  # noqa: E402
 from msda_tpu_torch.ops import native_multiscale_deformable_attention as plain_msda  # noqa: E402
@@ -275,7 +290,10 @@ MODEL = dict(num_classes=91, in_channels=IN_CHANNELS, emb_dim=256,
              num_heads=8, num_points=4, num_queries=300,
              num_encoder_layers=6, num_decoder_layers=6, ffn_dim=1024,
              with_box_refinement=True)
-LAUNCHES_PER_FORWARD = 12  # 6 encoder + 6 decoder layers
+# 6 encoder + 6 decoder layers: K1's launches a forward that autograd
+# records (training) or that runs on a mesh; an inference forward launches
+# K1's prologue variant (msda_fwd_queries) as many times and K1 none
+LAUNCHES_PER_FORWARD = 12
 # the fused add + LayerNorm's launches a bf16 forward without autograd: two
 # an encoder layer, three a decoder layer (an f32 forward or one autograd
 # records launches none)
@@ -324,6 +342,12 @@ STREAM_SOURCE = "msda_tpu_torch/csrc/msda_stream.cu"
 KERNELS = {  # name: (module, source, TPU kernel(s) it replaces)
     cuda_fwd.KERNEL: (cuda_fwd, "msda_tpu_torch/csrc/msda_fwd.cu",
                       "msda_tpu/ops/pallas_fwd.py:440"),
+    # K1 from the query projection's output: the module's sampling-point
+    # and softmax chain (XLA's elementwise fusions in the JAX model) and K1
+    cuda_fwd_queries.KERNEL: (
+        cuda_fwd_queries, "msda_tpu_torch/csrc/msda_fwd.cu",
+        "msda_tpu/ops/pallas_fwd.py:440 + the chain before it, "
+        "msda_tpu/models/attention.py"),
     cuda_bwd.KERNEL: (cuda_bwd, "msda_tpu_torch/csrc/msda_bwd.cu",
                       "msda_tpu/ops/pallas_bwd.py:147"),
     "msda_stream_fwd": (cuda_stream, STREAM_SOURCE,
@@ -655,9 +679,11 @@ def model_call(hw=IMAGE_HW, batch: int = BATCH, call: int = 0,
     full-width two-stage model (0: encoder layer 0, 6: decoder layer 0) on
     a seeded pyramid for an input of ``hw`` pixels: the sampling pattern of
     the main path.  Spied at the op (``models.attention`` calls
-    ``multiscale_deformable_attention``), so that the kernels it runs do
-    not matter; the forward stops at that call.  Returns ``(img, shapes,
-    pts, wts)``, f32 and contiguous."""
+    ``multiscale_deformable_attention`` in a forward that autograd records,
+    where the module runs its chain and the op: without autograd it calls
+    K1's prologue variant instead), so that the kernels it runs do not
+    matter; the forward stops at that call.  Returns ``(img, shapes, pts,
+    wts)``, f32 and contiguous."""
     shapes = model_shapes(hw)
     model = build_model("cuda", True)
     pyramid = make_pyramid(seed, shapes, batch)
@@ -672,15 +698,53 @@ def model_call(hw=IMAGE_HW, batch: int = BATCH, call: int = 0,
 
     attention.multiscale_deformable_attention = spy
     try:
-        with torch.inference_mode():
+        with torch.enable_grad():
             model(pyramid, shapes)
     except _Captured:
         pass
     finally:
         attention.multiscale_deformable_attention = real
-    img, pts, wts = (t.float().contiguous().clone() for t in seen[call])
+    img, pts, wts = (t.detach().float().contiguous().clone()
+                     for t in seen[call])
     del model, pyramid, seen
     return img, shapes, pts, wts
+
+
+def model_queries(hw=IMAGE_HW, batch: int = BATCH, call: int = 0,
+                  compute_dtype=None, seed: int = 30):
+    """The arguments of K1's prologue variant at its ``call``-th call in
+    one inference forward of the full-width two-stage model (0: encoder
+    layer 0, 6: decoder layer 0), as ``model_call`` spies the op's: the
+    projected pyramid ``img`` [B, I, H, C] and the query projection's
+    output ``q`` [B, N, H, L, P, 3], in the model's compute dtype, and the
+    reference points as the module passes them (the encoder's [I, 2]
+    expanded over the batch).  Returns ``(img, shapes, q, refs)``."""
+    shapes = model_shapes(hw)
+    model = build_model("cuda", True, compute_dtype)
+    pyramid = make_pyramid(seed, shapes, batch)
+    seen, real = [], library.msda_fwd_queries
+
+    def spy(img, q, refs, *args):
+        if len(seen) == call:
+            seen.append((img, q, refs))
+            raise _Captured
+        seen.append(None)
+        return real(img, q, refs, *args)
+
+    library.msda_fwd_queries = spy
+    try:
+        with torch.inference_mode():
+            model(pyramid, shapes)
+    except _Captured:
+        pass
+    finally:
+        library.msda_fwd_queries = real
+    with torch.inference_mode(False):
+        img, q, refs = (t.clone() for t in seen[call])
+    del model, pyramid, seen
+    if refs.stride(0) == 0:  # keep the encoder's points unmaterialised
+        refs = refs[:1].clone().expand(refs.shape)
+    return img.contiguous(), shapes, q.contiguous(), refs
 
 
 def make_targets(seed: int):
@@ -780,15 +844,32 @@ def check_gradient_parity() -> None:
                              "impl='reference' disagree")
 
 
-def serve_once(model, pyramid, image_sizes):
-    before = cuda_fwd.LAUNCHES
+def forward_launches() -> tuple[int, int]:
+    """The launch counters of K1's prologue variant and of K1."""
+    return cuda_fwd_queries.LAUNCHES, cuda_fwd.LAUNCHES
+
+
+def check_inference_forward(before, what: str = "a forward",
+                            mesh: bool = False) -> None:
+    """Fail unless an inference forward since ``before``
+    (``forward_launches()``) launched K1's prologue variant
+    LAUNCHES_PER_FORWARD times and K1 none; on a mesh, K1
+    LAUNCHES_PER_FORWARD times and the variant none."""
+    now = forward_launches()
+    launched = (now[0] - before[0], now[1] - before[1])
+    want = (0, LAUNCHES_PER_FORWARD) if mesh else (LAUNCHES_PER_FORWARD, 0)
+    if launched != want:
+        raise AssertionError(
+            f"{what} launched (K1's prologue variant, K1) {launched} times, "
+            f"expected {want}")
+
+
+def serve_once(model, pyramid, image_sizes, mesh: bool = False):
+    before = forward_launches()
     out = model(pyramid, SLICE_SHAPES)
     det = postprocess(out, top_k=100, scoring="sigmoid",
                       image_sizes=image_sizes)
-    launched = cuda_fwd.LAUNCHES - before
-    if launched != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"a forward launched the kernel {launched} "
-                             f"times, expected {LAUNCHES_PER_FORWARD}")
+    check_inference_forward(before, mesh=mesh)
     return out, det
 
 
@@ -807,19 +888,16 @@ def serving_fn(model):
 
 def timed_request(fn, pyramid, image_sizes):
     """One request through ``fn``, timed with CUDA events; it must launch
-    K1 LAUNCHES_PER_FORWARD times (a replay counts the captured launches).
-    Returns ``(detections, ms)``."""
-    before = cuda_fwd.LAUNCHES
+    K1's prologue variant LAUNCHES_PER_FORWARD times and K1 none (a replay
+    counts the captured launches).  Returns ``(detections, ms)``."""
+    before = forward_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     det = fn(pyramid, image_sizes)
     end.record()
     torch.cuda.synchronize()
-    launched = cuda_fwd.LAUNCHES - before
-    if launched != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"a request launched the kernel {launched} "
-                             f"times, expected {LAUNCHES_PER_FORWARD}")
+    check_inference_forward(before, "a request")
     return det, start.elapsed_time(end)
 
 
@@ -901,12 +979,13 @@ def serve(smi: str) -> tuple[dict, dict]:
     counts = launches()
     if forwards == 0:
         raise AssertionError("no forward was served")
-    # unforced, every call runs K1 (stream.FORCE)
+    # without autograd, every call runs K1's prologue variant and no K1
     check_path_launches("serving", counts, {
-        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD,
+        cuda_fwd_queries.KERNEL: forwards * LAUNCHES_PER_FORWARD,
         cuda_norm.KERNEL: norms})
     log(f"serving: {forwards} requests, launches {counts} "
-        f"({LAUNCHES_PER_FORWARD} K1 per request, replays included)")
+        f"({LAUNCHES_PER_FORWARD} {cuda_fwd_queries.KERNEL} and 0 "
+        f"{cuda_fwd.KERNEL} per request, replays included)")
     del models
     torch.cuda.empty_cache()
     return counts, means
@@ -1212,7 +1291,7 @@ def serve_shapes(smi: str, live_ms: dict | None = None) -> dict:
         memory_now()
     counts = launches()
     check_path_launches("serving over shapes", counts, {
-        cuda_fwd.KERNEL: requests * LAUNCHES_PER_FORWARD,
+        cuda_fwd_queries.KERNEL: requests * LAUNCHES_PER_FORWARD,
         cuda_norm.KERNEL: norms})
     log(f"4c: {requests} requests, launches {counts}")
     return counts
@@ -2195,6 +2274,140 @@ def check_norm(smi: str) -> dict:
     return {**row, "err": worst}
 
 
+# phase 6c: K1's prologue variant at the model's own calls (encoder layer 0
+# at 800x1333: I = 22,223 queries, the [I, 2] points expanded over the
+# batch; decoder layer 0: 300 boxes), batch 2; calls a timed graph
+QUERIES_CALLS = {"encoder": 0, "decoder": 6}
+QUERIES_GRAPH_CALLS = 12
+QUERIES_MANTISSA = {torch.float32: 23, torch.bfloat16: 7}
+
+
+def output_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The widest ``|got - want|`` in ulps of the output dtype, an ulp
+    taken at max(|want|, 1) (K1's outputs are held relative to
+    max(1, |ref|), as ``tests/test_torch_kernels.py``)."""
+    mag = want.double().abs().clamp(min=1.0)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))
+                     - QUERIES_MANTISSA[want.dtype])
+    return ((got.double() - want.double()).abs() / ulp).max().item()
+
+
+def queries_bound(shapes, img, q, refs, pts, wts) -> dict:
+    """The least time of one call of K1's prologue variant: ``bound``'s
+    (img in the rows the points reach, the output) with q read once in its
+    dtype and each stored value of the reference points once, in place of
+    K1's f32 points and weights."""
+    B, N, H, L, P, _ = q.shape
+    k1 = bound(shapes, img, pts, wts, False)
+    stored = refs.shape[1] * refs.shape[2] * (1 if refs.stride(0) == 0
+                                              else B)
+    nbytes = (k1["bytes"] - B * N * H * L * P * 12
+              + q.numel() * q.element_size() + stored * 4)
+    ms, bound_by = roofline_ms(nbytes, k1["flops"])
+    return {"bytes": nbytes, "flops": k1["flops"], "ms": ms,
+            "bound_by": bound_by}
+
+
+def check_queries(smi: str) -> dict:
+    """Phase 6c: K1's prologue variant (``cuda_fwd_queries``) on the model's
+    own calls, bf16 and f32: against its plain version
+    (``msda_fwd_queries_plain``, the chain and the plain MSDA) within K1's
+    bar (``TOL``, relative to max(1, |plain|)); against the module's chain
+    (``sampling_plain``) + K1 within one output ulp, the share bitwise
+    equal; in f32, the variant's and the chain + K1's distance to the f64
+    path (the chain and the plain MSDA in f64).  Then each side's device
+    time, a call of a CUDA graph of ``QUERIES_GRAPH_CALLS`` calls on fresh
+    operands replayed, in turns (chain, variant, variant, chain), beside the
+    variant's bound (``queries_bound``) and the plain version's time.
+    Returns the JSON row's numbers: the times from the encoder call in bf16,
+    ``err`` the largest f32 abs error against the plain version (as K1's
+    row), and the chain + K1 comparison and the f64 distances apart."""
+    args = ("reference", "border", False)
+    worst, row = 0.0, None
+    chain_k1 = {"ulps": 0.0, "bitwise": 1.0}
+    wide_gap = {"variant": 0.0, "chain_k1": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, call in QUERIES_CALLS.items():
+            img, shapes, q, refs = model_queries(
+                IMAGE_HW, BATCH, call,
+                None if dtype == torch.float32 else dtype)
+            hw = torch.tensor(shapes, dtype=torch.float32, device=DEVICE)
+            with torch.inference_mode():
+                before = forward_launches()
+                got = cuda_fwd_queries.msda_fwd_queries(img, shapes, q, refs,
+                                                        *args)
+                pts, wts = cuda_fwd_queries.sampling_plain(q, refs, shapes,
+                                                           args[0], hw)
+                want = cuda_fwd.msda_fwd(img, shapes, pts, wts, *args[1:])
+                torch.cuda.synchronize()
+                after = forward_launches()
+                if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+                    raise AssertionError("6c: a call launched the variant "
+                                         "or K1 other than once")
+                plain_out = cuda_fwd_queries.msda_fwd_queries_plain(
+                    img, shapes, q, refs, *args)
+                err, _, mixed = errors(got, plain_out)
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                    wide = cuda_fwd_queries.msda_fwd_queries_plain(
+                        img.double(), shapes, q.double(), refs.double(),
+                        *args)
+                    scale = wide.abs().clamp(min=1.0)
+                    gaps = [((x.double() - wide) / scale).abs().max().item()
+                            for x in (got, want)]
+                    wide_gap = {"variant": max(wide_gap["variant"], gaps[0]),
+                                "chain_k1": max(wide_gap["chain_k1"],
+                                                gaps[1])}
+                    del wide, scale
+                equal = (got == want).float().mean().item()
+                ulps = output_ulps(got, want)
+                chain_k1 = {"ulps": max(chain_k1["ulps"], ulps),
+                            "bitwise": min(chain_k1["bitwise"], equal)}
+                operands = [(img.clone(), q.clone(), refs)
+                            for _ in range(QUERIES_GRAPH_CALLS)]
+
+                def variant(x, y, r):
+                    cuda_fwd_queries.msda_fwd_queries(x, shapes, y, r, *args)
+
+                def chain(x, y, r):
+                    p_, w_ = cuda_fwd_queries.sampling_plain(y, r, shapes,
+                                                             args[0], hw)
+                    cuda_fwd.msda_fwd(x, shapes, p_, w_, *args[1:])
+
+                c1 = graph_call_ms(chain, operands)
+                k1 = graph_call_ms(variant, operands)
+                k2 = graph_call_ms(variant, operands)
+                c2 = graph_call_ms(chain, operands)
+                plain = time_ms(lambda: cuda_fwd_queries.msda_fwd_queries_plain(
+                    img, shapes, q, refs, *args), 2)
+            k, c = (k1 + k2) / 2, (c1 + c2) / 2
+            b = queries_bound(shapes, img, q, refs, pts, wts)
+            wide_text = (f"; distance to the f64 path {gaps[0]:.3e}, the "
+                         f"chain + K1's {gaps[1]:.3e}"
+                         if dtype == torch.float32 else "")
+            log(f"6c prologue variant {name} {tuple(q.shape)} "
+                f"{str(dtype)[6:]}: against the plain version max_abs "
+                f"{err:.3e} err {mixed:.3e} (tol {TOL[dtype]:g}); "
+                f"{equal:.4%} bitwise equal to the chain + K1, at most "
+                f"{ulps:g} ulp{wide_text}; variant "
+                f"{k:.5f} ms ({k1:.5f}, {k2:.5f}), chain + K1 {c:.5f} ms "
+                f"({c1:.5f}, {c2:.5f}), {c / k:.2f}x; plain {plain:.4f} ms; "
+                f"bound {b['ms']:.5f} ms ({b['bound_by']}: {b['bytes']} B), "
+                f"{100 * b['ms'] / k:.1f}% of it on {smi}")
+            if not (torch.isfinite(got).all().item() and mixed <= TOL[dtype]):
+                raise AssertionError(
+                    f"6c {name} {str(dtype)[6:]}: the variant is {mixed:.3e} "
+                    f"from its plain version (the bar: {TOL[dtype]:g})")
+            if ulps > 1:
+                raise AssertionError(
+                    f"6c {name} {str(dtype)[6:]}: the variant is {ulps:g} "
+                    "ulp from the chain + K1 (the bar: 1)")
+            if row is None:  # the encoder call in bf16
+                row = {"ms": k, "plain_ms": plain, "chain_ms": c, "bound": b}
+            del img, q, refs, pts, wts, operands, got, want, plain_out
+    return {**row, "err": worst, "chain_k1": chain_k1, "f64_gap": wide_gap}
+
+
 def time_big_pyramid(smi: str) -> None:
     """K1 and K2 alone at the 256-base pyramid (f32 img of 356 MB, beyond
     the 50 MB L2): the measurement to take before a streamed large-pyramid
@@ -2530,16 +2743,22 @@ def pyramid(seed):
         for (h, w), c in zip(spec["shapes"], spec["channels"])]
 
 
+def launched():  # (K1's prologue variant, K1) launches so far
+    now = counts()
+    return now.get("msda_fwd_queries", 0), now.get("msda_fwd", 0)
+
+
 def timed(fn, pyr):
-    # K1's wrapper registers its counter when the first call imports it
-    before = counts().get("msda_fwd", 0)
+    before = launched()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     det = fn(*pyr)
     end.record()
     torch.cuda.synchronize()
-    return det, start.elapsed_time(end), counts()["msda_fwd"] - before
+    after = launched()
+    return det, start.elapsed_time(end), [after[0] - before[0],
+                                          after[1] - before[1]]
 
 
 result = {}
@@ -2560,7 +2779,7 @@ for name in spec["models"]:
                 if mode == "graphed":
                     torch.save({k: v.cpu() for k, v in det.items()},
                                f"{spec['dir']}/{name}_{i}.pt")
-    result[name] = {"k1_per_forward": per_forward, "ms": times["graphed"],
+    result[name] = {"per_forward": per_forward, "ms": times["graphed"],
                     "eager_ms": times["eager"], "forwards": len(per_forward)}
 result["launches"] = counts()
 result["free_bytes"] = torch.cuda.mem_get_info()[0]
@@ -2636,10 +2855,12 @@ def export_path(smi: str, live_ms: dict) -> dict:
     forwards = 0
     for name, dets in live.items():
         got = served[name]
-        if got["k1_per_forward"] != [LAUNCHES_PER_FORWARD] * got["forwards"]:
-            raise AssertionError(f"exported {name}: K1 launches a request "
-                                 f"{got['k1_per_forward']}, expected "
-                                 f"{LAUNCHES_PER_FORWARD}")
+        if got["per_forward"] != [[LAUNCHES_PER_FORWARD, 0]] * got[
+                "forwards"]:
+            raise AssertionError(
+                f"exported {name}: (K1's prologue variant, K1) launches a "
+                f"request {got['per_forward']}, expected "
+                f"[{LAUNCHES_PER_FORWARD}, 0]")
         forwards += got["forwards"]
         worst = 0.0
         for i, want in enumerate(dets):
@@ -2656,8 +2877,9 @@ def export_path(smi: str, live_ms: dict) -> dict:
         mean, eager_mean = sum(ms) / len(ms), sum(eager_ms) / len(eager_ms)
         log(f"exported {name}: {len(dets)} graphed requests against the "
             f"live graphed ones, labels equal, scores/boxes err {worst:.3e} "
-            f"(tol {EXPORT_TOL[name]:g}) {'ok' if ok else 'FAIL'}; K1 a "
-            f"request {got['k1_per_forward']}; graphed per-request ms "
+            f"(tol {EXPORT_TOL[name]:g}) {'ok' if ok else 'FAIL'}; "
+            f"(K1's prologue variant, K1) a request {got['per_forward']}; "
+            f"graphed per-request ms "
             f"{', '.join(f'{t:.3f}' for t in ms)} (mean {mean:.3f}; live "
             f"graphed, phase 4: {live_ms[name]:.3f}); eager (__wrapped__, "
             f"node by node) in turns {', '.join(f'{t:.3f}' for t in eager_ms)}"
@@ -2675,7 +2897,7 @@ def export_path(smi: str, live_ms: dict) -> dict:
                                  "slower than the live graphed request")
     counts = served["launches"]
     check_path_launches("export", counts, {
-        cuda_fwd.KERNEL: forwards * LAUNCHES_PER_FORWARD,
+        cuda_fwd_queries.KERNEL: forwards * LAUNCHES_PER_FORWARD,
         cuda_norm.KERNEL: (served["bf16"]["forwards"]
                            * NORMS_PER_HALF_FORWARD)})
     return counts
@@ -2707,7 +2929,8 @@ def report_trace(what: str, t, unprofiled_ms: float, smi: str) -> None:
 def profile_paths(smi: str, serve_ms: dict, eager_step_ms: float,
                   graphed: tuple) -> None:
     """Phase 8c: one f32 serving request, eager (``__wrapped__``, for the
-    spans) and graphed (a replay, 12 K1 in the trace), one replay of the
+    spans) and graphed (a replay, 12 launches of K1's prologue variant in
+    the trace and no K1), one replay of the
     exported bf16 program (the device time of its casts and copies), and
     one eager f32 training step, each after its warm-up, under
     ``utils.profile.trace``; ``serve_ms`` is phase 4's mean request,
@@ -2725,19 +2948,24 @@ def profile_paths(smi: str, serve_ms: dict, eager_step_ms: float,
             fn.__wrapped__(pyramid, image_sizes)
         report_trace("serving f32 request (eager)", t,
                      serve_ms["f32"]["eager"], smi)
-        before = cuda_fwd.LAUNCHES
+        before = forward_launches()
         with trace(os.path.join(TRACE_DIR, "serve_f32_graphed")) as t:
             fn(pyramid, image_sizes)
-        counted = cuda_fwd.LAUNCHES - before
-    traced = sum(n for kname, n in t.kernel_counts().items()
-                 if "msda_fwd_kernel" in kname)
+        after = forward_launches()
+    counted = (after[0] - before[0], after[1] - before[1])
+    traced = tuple(sum(n for kname, n in t.kernel_counts().items()
+                       if pattern in kname)
+                   for pattern in ("msda_fwd_queries_kernel",
+                                   "msda_fwd_kernel"))
     report_trace("serving f32 request (graphed, a replay)", t,
                  serve_ms["f32"]["graphed"], smi)
-    log(f"  K1 in the graphed request's trace {traced}, counted {counted}")
-    if traced != LAUNCHES_PER_FORWARD or counted != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"a graphed request launched K1 {traced} times "
-                             f"(trace), {counted} (counters); expected "
-                             f"{LAUNCHES_PER_FORWARD}")
+    log(f"  (K1's prologue variant, K1) in the graphed request's trace "
+        f"{traced}, counted {counted}")
+    if traced != (LAUNCHES_PER_FORWARD, 0) or counted != traced:
+        raise AssertionError(
+            f"a graphed request launched (K1's prologue variant, K1) "
+            f"{traced} times (trace), {counted} (counters); expected "
+            f"({LAUNCHES_PER_FORWARD}, 0)")
     del model, fn
 
     serve = load_exported_file(os.path.join(EXPORT_DIR, "bf16.pt2"))
@@ -2826,12 +3054,12 @@ def dryrun_cpu(smi: str) -> None:
         f"({time.perf_counter() - t0:.1f} s; host of {smi})")
 
 
-def _mesh_serve(model, pyramid, image_sizes):
+def _mesh_serve(model, pyramid, image_sizes, mesh: bool):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     before = cuda_fwd.LAUNCHES
     start.record()
-    out, det = serve_once(model, pyramid, image_sizes)
+    out, det = serve_once(model, pyramid, image_sizes, mesh)
     end.record()
     torch.cuda.synchronize()
     return det, cuda_fwd.LAUNCHES - before, start.elapsed_time(end)
@@ -2860,17 +3088,19 @@ def mesh_path(smi: str) -> dict:
         with torch.inference_mode():
             serve_once(plain, pyramid, image_sizes)  # warm-ups
             reset_launches()
-            serve_once(sharded, pyramid, image_sizes)
+            serve_once(sharded, pyramid, image_sizes, mesh=True)
             served = launches()
             times = {"mesh": [], "unsharded": []}
             for _ in range(3):  # in turns: the request is host-bound
                 before = launches()
-                got, k1, ms = _mesh_serve(sharded, pyramid, image_sizes)
+                got, k1, ms = _mesh_serve(sharded, pyramid, image_sizes,
+                                          mesh=True)
                 after = launches()
                 served = {k: served[k] + after[k] - before[k]
                           for k in served}
                 times["mesh"].append(ms)
-                want, _, ms = _mesh_serve(plain, pyramid, image_sizes)
+                want, _, ms = _mesh_serve(plain, pyramid, image_sizes,
+                                          mesh=False)
                 times["unsharded"].append(ms)
         check_detections(got)
         worst = max(errors(got[k], want[k])[2] for k in ("scores", "boxes"))
@@ -2998,7 +3228,8 @@ def headline_lines(smi: str) -> dict:
               if text.startswith("launches ")]
     # the op's kernels: the headline process runs the op alone
     op_kernels = set(launches()) - {cuda_matcher.KERNEL, cuda_norm.KERNEL,
-                                    cuda_auction_large.KERNEL}
+                                    cuda_auction_large.KERNEL,
+                                    cuda_fwd_queries.KERNEL}
     if len(counts) != 1 or set(counts[0]) != op_kernels:
         raise AssertionError(f"headline: launch counts {counts}, expected "
                              f"one line with the keys {sorted(op_kernels)}")
@@ -3034,6 +3265,8 @@ def main() -> None:
              cuda_bwd.KERNEL: time_backward_kernel(smi)}
     norm = check_norm(smi)
     errs[cuda_norm.KERNEL] = norm["err"]
+    queries = check_queries(smi)
+    errs[cuda_fwd_queries.KERNEL] = queries["err"]
     time_big_pyramid(smi)
     stream_times = time_stream_kernels(smi)
     benchmark_row(smi)
@@ -3063,6 +3296,9 @@ def main() -> None:
             ms, plain_ms, b = large["ms"], large["plain_ms"], large["bound"]
         elif name == cuda_norm.KERNEL:  # the 800x1333 encoder call, bf16
             ms, plain_ms, b = norm["ms"], norm["plain_ms"], norm["bound"]
+        elif name == cuda_fwd_queries.KERNEL:  # the same call, bf16
+            ms, plain_ms, b = (queries["ms"], queries["plain_ms"],
+                               queries["bound"])
         else:  # the streamed kernels: the 256-base pyramid, f32
             ms, plain_ms, b = stream_times[(name, torch.float32)]
         # a process counts the kernels whose wrappers it imported: the
@@ -3088,6 +3324,15 @@ def main() -> None:
             # a sum's LayerNorm
             "library_ms": None,
         })
+        if name == cuda_fwd_queries.KERNEL:
+            # what it replaces on the main path, the chain and K1: its time,
+            # the widest gap in output ulps and the least bitwise share; and
+            # in f32 the distance of each to the f64 path, relative to
+            # max(1, |f64|)
+            kernels[-1]["chain_ms"] = queries["chain_ms"]
+            kernels[-1]["chain_k1_max_ulps"] = queries["chain_k1"]["ulps"]
+            kernels[-1]["chain_k1_bitwise"] = queries["chain_k1"]["bitwise"]
+            kernels[-1]["f64_gap"] = queries["f64_gap"]
         if name == cuda_matcher.KERNEL:
             kernels[-1]["limited_by"] = (
                 "latency: rounds x one round's scans, shuffles and "

@@ -1,5 +1,8 @@
 // The host-side plan of K1 (msda_fwd.cu): the tile, the point chunks, the
-// copy widths and the shared memory of one launch, from the shapes alone.
+// copy widths and the shared memory of one launch, from the shapes alone;
+// and the plan of its prologue variant, msda_fwd_queries, which stages
+// rows of the query projection's output in place of points and weights,
+// with the shapes it takes.
 //
 // Plain C++ (no CUDA header), so that the CPU tests compile it with the
 // host compiler and check it over many shapes
@@ -108,6 +111,72 @@ inline FwdPlan fwd_plan(int L, int P, int C, int G, int vec, int pts_align,
   p.vw_pts = fwd_copy_floats(2 * LP, 2 * chunk, pts_align);
   p.vw_wts = fwd_copy_floats(LP, chunk, wts_align);
   p.smem = fwd_smem_bytes(p.tile, p.stride);
+  return p;
+}
+
+// The prologue variant (msda_fwd_queries in msda_fwd.cu).  Shared bytes a
+// task-point takes: its four corner offsets and four weights (32 B) and its
+// row of q, 3 values of `elem` bytes, in every stage; and a task its
+// reference point (4 f32, 16 B) in every stage.
+inline int fwd_queries_point_bytes(int elem) {
+  return 32 + 3 * elem * MSDA_FWD_STAGES;
+}
+constexpr int kFwdQueriesTaskBytes = 16 * MSDA_FWD_STAGES;
+
+// torch.softmax's lanes a row of n values (softmax_warp_forward): the
+// next power of two of n, at most a warp.
+inline int fwd_softmax_lanes(int n) {
+  int lanes = 1;
+  while (lanes < n && lanes < 32) lanes <<= 1;
+  return lanes;
+}
+
+struct FwdQueriesPlan {
+  int lanes;       // as FwdPlan's
+  int vec;
+  int tile;
+  int stride;      // a task's entries: its softmax's lanes, a point a lane
+  int q_bytes;     // bytes a copy of q's rows: 16, 8 or 4
+  int ref_floats;  // floats a copy of a reference point: 4, 2 or 1
+  int smem;        // dynamic shared bytes of a block; 0 where the variant
+                   // does not take the shape
+};
+
+// The widest copy (16, 8 or 4 bytes) that divides a task's row of `row`
+// bytes and a staged row of `pitch` bytes, from a base aligned to `align`
+// bytes; 0 where none does.
+inline int fwd_copy_bytes(int row, int pitch, int align) {
+  for (int b = 16; b >= 4; b >>= 1) {
+    if (row % b == 0 && pitch % b == 0 && align % b == 0) return b;
+  }
+  return 0;
+}
+
+// L levels of P points, G lanes of `vec` channels a task (as fwd_plan,
+// from C); q's values of `elem` bytes from a base aligned to q_align
+// bytes; reference points of R = 2 or 4 f32 whose base and strides are
+// aligned to ref_align bytes.  The variant takes a shape (plan.smem > 0)
+// where a task's L * P points are torch.softmax's lanes, a point a lane
+// (3 to 32 points: the next power of two of L * P, at least the 4 entries
+// a task takes, at most a warp), a 4-byte copy divides q's rows (always in
+// f32; an even L * P in the half types) and the tile fits the block's
+// shared memory (all but f32 tiles of 128 tasks, C <= 4, past 16 points).
+inline FwdQueriesPlan fwd_queries_plan(int L, int P, int G, int vec,
+                                       int elem, int q_align, int R,
+                                       int ref_align) {
+  FwdQueriesPlan p;
+  p.lanes = G;
+  p.vec = vec;
+  p.tile = MSDA_FWD_WARPS * (32 / G);
+  const int LP = L * P;
+  p.stride = fwd_softmax_lanes(LP);
+  p.q_bytes = fwd_copy_bytes(3 * LP * elem, 3 * p.stride * elem, q_align);
+  p.ref_floats = fwd_copy_floats(R, R, ref_align);
+  const int smem = p.tile * (p.stride * fwd_queries_point_bytes(elem) +
+                             kFwdQueriesTaskBytes);
+  const bool takes = LP >= 3 && LP <= 32 && p.q_bytes > 0 &&
+                     smem <= MSDA_FWD_SMEM_MAX;
+  p.smem = takes ? smem : 0;
   return p;
 }
 

@@ -13,6 +13,20 @@ msda-triton divides the (x, y) offsets by ``img_shapes``, which is in
 y-offsets by the width.  ``offset_normalizer="reference"`` (default) keeps
 that; ``offset_normalizer="detr"`` uses the original paper's (w, h) order.
 
+Where autograd records nothing and the op would run K1 (CUDA tensors in
+bf16, f16 or f32, ``resolved_impl`` "cuda", ``stream.FORCE`` not set,
+no mesh) on shapes its prologue variant takes (``cuda_fwd_queries.takes``:
+3 to 32 points a head, the model's 16 among them), the query projection's
+output goes straight to the operator
+``torch.ops.msda_tpu_torch.msda_fwd_queries`` (``ops/library.py``): K1's
+prologue variant computes the softmax and the sampling locations in the
+kernel, in the chain's f32 operations, where the chain
+(``ops.cuda_fwd_queries.sampling_plain``) writes f32 points and weights to
+device memory for K1 to read back.  Every other call (the CPU, f64,
+training, the mesh, ``impl="reference"``, forced streaming) runs the
+chain and the op.  The variant's launch counter, ``msda_fwd_queries``
+(``ops/launches.py``), counts the calls that took the route.
+
 With a device ``mesh`` (``parallel.sharding``), the module runs its share:
 the rank's block of queries (sp) and of heads (tp).  The two input
 projections are column-parallel (a contiguous block of their output
@@ -30,7 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import level_shapes, multiscale_deformable_attention
+from ..ops import (cuda_fwd, cuda_fwd_queries, level_shapes, library,
+                   multiscale_deformable_attention, resolved_impl, stream)
 from ..parallel.sharding import (axis, gather_over,
                                  shard_map_multiscale_deformable_attention,
                                  sum_over)
@@ -207,46 +222,25 @@ class MultiscaleDeformableAttention(nn.Module):
                 return layer.block(x, 0, t, tp)
         N = queries.shape[1]
 
-        # offsets and attention logits in at least f32 even under bf16:
-        # bf16's 8 mantissa bits would quantize absolute sampling positions
-        # to ~1/256 of a level (promote, so that f64 stays f64)
-        q = project(self.query_input_proj, queries)
-        q = q.to(torch.promote_types(q.dtype, torch.float32))
-        q = q.reshape(B, N, H, L, P, 3)
-        offsets, logits = q[..., :2], q[..., 2]
-        attention_weights = torch.softmax(
-            logits.reshape(B, N, H, L * P), dim=-1
-        ).reshape(B, N, H, L, P)
-
+        q = project(self.query_input_proj, queries).reshape(B, N, H, L, P, 3)
         img_p = project(self.img_input_proj, img).reshape(B, I, H, Dh)
-
         shapes = level_shapes(img_shapes)
-        last = reference_points.shape[-1]
-        if last == 2:
+        if self._fused(img_p, q, reference_points, shapes):
+            out = library.msda_fwd_queries(
+                img_p, q, reference_points, library.flat_shapes(shapes),
+                self.offset_normalizer, self.padding_mode,
+                bool(self.align_corners))
+            return self.query_output_proj(out.reshape(B, N, H * Dh))
+
+        hw = None
+        if reference_points.shape[-1] == 2:
+            dt = torch.promote_types(q.dtype, torch.float32)
             hw = device_constant(  # (h, w) order
-                self._constants, (shapes, offsets.dtype),
-                lambda device: torch.tensor(shapes, dtype=offsets.dtype,
-                                            device=device), offsets)
-            normalizer = hw if self.offset_normalizer == "reference" else (
-                hw.flip(-1))
-            # [B, N, 1, 1, 1, 2] + [B, N, H, L, P, 2] / [L, 1, 2]
-            sampling_points = (
-                reference_points[:, :, None, None, None, :]
-                + offsets / normalizer[:, None, :]
-            )
-        elif last == 4:
-            # box-scaled offsets
-            sampling_points = (
-                reference_points[:, :, None, None, None, :2]
-                + offsets
-                * reference_points[:, :, None, None, None, 2:]
-                / (2 * P)
-            )
-        else:
-            raise ValueError(
-                "`reference_points` should have last dim 2 or 4, "
-                f"but got {last}."
-            )
+                self._constants, (shapes, dt),
+                lambda device: torch.tensor(shapes, dtype=dt, device=device),
+                q)
+        sampling_points, attention_weights = cuda_fwd_queries.sampling_plain(
+            q, reference_points, shapes, self.offset_normalizer, hw)
 
         if mesh is None:
             out = multiscale_deformable_attention(
@@ -266,3 +260,22 @@ class MultiscaleDeformableAttention(nn.Module):
                                                       bias=False), mesh, "tp")
             y = y + self.query_output_proj.bias.to(y.dtype)
         return gather_over(y, mesh, "sp", 1)
+
+    def _fused(self, img, q, reference_points, shapes) -> bool:
+        """Whether the call takes ``msda_fwd_queries``: no mesh, CUDA
+        tensors, ``img`` and ``q`` of one kernel dtype, 2- or 4-coordinate
+        reference points of a kernel dtype, shapes the variant takes
+        (``cuda_fwd_queries.takes``), the op resolving to "cuda" and not
+        forced to stream (``stream.FORCE``), and autograd recording
+        nothing."""
+        return (self.mesh is None and q.is_cuda
+                and q.dtype == img.dtype and q.dtype in cuda_fwd.DTYPE_CODES
+                and reference_points.dtype in cuda_fwd.DTYPE_CODES
+                and reference_points.shape[-1] in (2, 4)
+                and img.device == q.device == reference_points.device
+                and cuda_fwd_queries.takes(img, q)
+                and resolved_impl(self.impl, shapes, img.dtype,
+                                  img.device) == "cuda"
+                and not stream.FORCE
+                and not (torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (img, q, reference_points))))

@@ -22,8 +22,8 @@ import torch
 from . import _build, launches
 from .reference import level_shapes
 
-__all__ = ["LAUNCHES", "msda_fwd", "load", "check_inputs", "launch_plan",
-           "PLAN_FIELDS"]
+__all__ = ["LAUNCHES", "msda_fwd", "load", "check_inputs", "level_table",
+           "launch_plan", "PLAN_FIELDS"]
 
 KERNEL = "msda_fwd"
 MAX_LEVELS = 16  # MSDA_MAX_LEVELS in the source
@@ -81,7 +81,7 @@ def check_inputs(img, img_shapes, sampling_points, attention_weights,
             "expected img [B, I, H, C] and sampling_points [B, N, H, L, P, 2], "
             f"got {tuple(img.shape)} and {tuple(sampling_points.shape)}"
         )
-    B, I, H, C = img.shape  # noqa: E741
+    B, _, H, _ = img.shape
     Bp, N, Hp, L, P, _ = sampling_points.shape
     if (Bp, Hp) != (B, H) or (
             attention_weights.shape != sampling_points.shape[:-1]):
@@ -90,19 +90,7 @@ def check_inputs(img, img_shapes, sampling_points, attention_weights,
             f"{tuple(sampling_points.shape)}, attention_weights "
             f"{tuple(attention_weights.shape)}"
         )
-    shapes = level_shapes(img_shapes)
-    if len(shapes) != L or not 1 <= L <= MAX_LEVELS:
-        raise ValueError(
-            f"img_shapes has {len(shapes)} levels; sampling_points has {L} "
-            f"(the kernel takes 1 to {MAX_LEVELS})"
-        )
-    if sum(h * w for h, w in shapes) != I:
-        raise ValueError(f"img has {I} pixels but img_shapes {shapes} "
-                         f"sums to {sum(h * w for h, w in shapes)}")
-    if any(h < 1 or w < 1 for h, w in shapes):
-        raise ValueError(f"every level needs a positive size, got {shapes}")
-    if max(img.numel(), B * N * H * L * P * 2, B * N * H * C) > _INT32_MAX:
-        raise ValueError("tensors above 2**31 - 1 elements are not supported")
+    level_hw = level_table(img_shapes, img, B * N * H, L, P)
     if not img.is_contiguous():
         raise ValueError("img must be contiguous")
 
@@ -111,8 +99,29 @@ def check_inputs(img, img_shapes, sampling_points, attention_weights,
     if not (pts.is_contiguous() and wts.is_contiguous()):
         raise ValueError("sampling_points and attention_weights must be "
                          "contiguous")
-    level_hw = (ctypes.c_int * (2 * L))(*(v for hw in shapes for v in hw))
     return level_hw, pts, wts
+
+
+def level_table(img_shapes, img, tasks: int, L: int, P: int):
+    """The level shapes as a ctypes ``int[L * 2]`` array for a launch of
+    K1 or its prologue variant, once checked against ``img`` ``[B, I, H,
+    C]``, ``tasks`` = B * N * H and L levels of P points.  Raises
+    ``ValueError`` on what the kernels do not take."""
+    I, C = img.shape[1], img.shape[3]  # noqa: E741
+    shapes = level_shapes(img_shapes)
+    if len(shapes) != L or not 1 <= L <= MAX_LEVELS:
+        raise ValueError(
+            f"img_shapes has {len(shapes)} levels; the points have {L} "
+            f"(the kernel takes 1 to {MAX_LEVELS})"
+        )
+    if sum(h * w for h, w in shapes) != I:
+        raise ValueError(f"img has {I} pixels but img_shapes {shapes} "
+                         f"sums to {sum(h * w for h, w in shapes)}")
+    if any(h < 1 or w < 1 for h, w in shapes):
+        raise ValueError(f"every level needs a positive size, got {shapes}")
+    if max(img.numel(), tasks * L * P * 2, tasks * C) > _INT32_MAX:
+        raise ValueError("tensors above 2**31 - 1 elements are not supported")
+    return (ctypes.c_int * (2 * L))(*(v for hw in shapes for v in hw))
 
 
 def msda_fwd(

@@ -62,6 +62,23 @@ the chain of PyTorch calls that the kernel replaces: the sum in ``a``'s
 dtype, ``F.layer_norm`` in f32, a cast back.  It has no autograd formula:
 ``LayerNorm`` calls it only where autograd records nothing.
 
+``msda_fwd_queries`` is the attention module's forward from the query
+projection's output, for inference (``models/attention.py``), one operator
+so that an exported or captured model keeps it:
+
+    msda_fwd_queries(img, q, reference_points, level_shapes,
+                     offset_normalizer, padding_mode, align_corners) -> out
+
+``q`` is ``[B, N, H, L, P, 3]`` (each point's x and y offsets and its
+attention logit), ``reference_points`` ``[B, N, 2 | 4]``, ``out`` ``[B, N,
+H, C]`` in ``img``'s dtype.  CUDA: ``cuda_fwd_queries.msda_fwd_queries``,
+K1's prologue variant (``img`` and ``q`` of one dtype, bf16, f16 or f32;
+``img`` and ``q`` are made contiguous, and the reference points too where
+their last axis is not).  CPU: ``cuda_fwd_queries.msda_fwd_queries_plain``,
+the module's chain of PyTorch calls (``sampling_plain``) and the plain
+MSDA.  It has no autograd formula: the module calls it only where autograd
+records nothing.
+
 The CUDA implementations run in the host spans ``msda.fwd`` and
 ``msda.bwd`` (``utils.profile.annotate``; recorded only while a profiler
 runs, and never a device span): the op's own host work, its input checks
@@ -75,10 +92,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.profile import annotate
-from . import cuda_norm, stream
+from . import cuda_fwd_queries, cuda_norm, stream
 from .reference import native_msda_backward, native_multiscale_deformable_attention
 
-__all__ = ["msda_fwd", "msda_bwd", "add_layer_norm", "flat_shapes"]
+__all__ = ["msda_fwd", "msda_bwd", "add_layer_norm", "msda_fwd_queries",
+           "flat_shapes"]
 
 NAMESPACE = "msda_tpu_torch"
 
@@ -93,6 +111,10 @@ _LIB.define(
 _LIB.define(
     "add_layer_norm(Tensor a, Tensor b, Tensor weight, Tensor bias, "
     "float eps) -> Tensor")
+_LIB.define(
+    "msda_fwd_queries(Tensor img, Tensor q, Tensor reference_points, "
+    "int[] level_shapes, str offset_normalizer, str padding_mode, "
+    "bool align_corners) -> Tensor")
 
 
 def flat_shapes(shapes) -> list[int]:
@@ -153,12 +175,31 @@ def _add_norm_cuda(a, b, weight, bias, eps):
                                     _dense(bias), eps)
 
 
+def _fwd_queries_cuda(img, q, reference_points, level_shapes,
+                      offset_normalizer, padding_mode, align_corners):
+    refs = reference_points
+    if refs.stride(-1) != 1:
+        refs = refs.contiguous()
+    return cuda_fwd_queries.msda_fwd_queries(
+        img.contiguous(), _pairs(level_shapes), q.contiguous(), refs,
+        offset_normalizer, padding_mode, align_corners)
+
+
+def _fwd_queries_cpu(img, q, reference_points, level_shapes,
+                     offset_normalizer, padding_mode, align_corners):
+    return cuda_fwd_queries.msda_fwd_queries_plain(
+        img, _pairs(level_shapes), q, reference_points, offset_normalizer,
+        padding_mode, align_corners).contiguous()
+
+
 _LIB.impl("msda_fwd", _fwd_cuda, "CUDA")
 _LIB.impl("msda_bwd", _bwd_cuda, "CUDA")
 _LIB.impl("msda_fwd", _fwd_cpu, "CPU")
 _LIB.impl("msda_bwd", _bwd_cpu, "CPU")
 _LIB.impl("add_layer_norm", _add_norm_cuda, "CUDA")
 _LIB.impl("add_layer_norm", cuda_norm.add_layer_norm_plain, "CPU")
+_LIB.impl("msda_fwd_queries", _fwd_queries_cuda, "CUDA")
+_LIB.impl("msda_fwd_queries", _fwd_queries_cpu, "CPU")
 
 
 @torch.library.register_fake(f"{NAMESPACE}::msda_fwd", lib=_LIB)
@@ -179,6 +220,13 @@ def _bwd_fake(img, sampling_points, attention_weights, out_grad,
 @torch.library.register_fake(f"{NAMESPACE}::add_layer_norm", lib=_LIB)
 def _add_norm_fake(a, b, weight, bias, eps):
     return a.new_empty(a.shape)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::msda_fwd_queries", lib=_LIB)
+def _fwd_queries_fake(img, q, reference_points, level_shapes,
+                      offset_normalizer, padding_mode, align_corners):
+    B, _, H, C = img.shape
+    return img.new_empty((B, q.shape[1], H, C))
 
 
 class _MSDA(torch.autograd.Function):
@@ -210,3 +258,4 @@ _LIB.impl("msda_fwd", _MSDA.apply, "Autograd")
 msda_fwd = torch.ops.msda_tpu_torch.msda_fwd
 msda_bwd = torch.ops.msda_tpu_torch.msda_bwd
 add_layer_norm = torch.ops.msda_tpu_torch.add_layer_norm
+msda_fwd_queries = torch.ops.msda_tpu_torch.msda_fwd_queries

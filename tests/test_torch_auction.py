@@ -238,7 +238,8 @@ def test_launch_counts_take_the_replays_counts(monkeypatch):
     counts = launches.counts()
     assert set(counts) == {"msda_fwd", "msda_bwd", "msda_auction",
                            "msda_auction_large", "msda_stream_bin",
-                           "msda_stream_fwd", "msda_stream_bwd", "msda_norm"}
+                           "msda_stream_fwd", "msda_stream_bwd", "msda_norm",
+                           "msda_fwd_queries"}
     monkeypatch.setattr(cuda_fwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_bwd, "LAUNCHES", 0)
     monkeypatch.setattr(cuda_matcher, "LAUNCHES", 0)

@@ -61,7 +61,8 @@ from msda_tpu_torch.ops import (
     native_msda_backward,
     native_multiscale_deformable_attention,
 )
-from msda_tpu_torch.ops import cuda_bwd, cuda_fwd, cuda_stream, library, stream
+from msda_tpu_torch.ops import (cuda_bwd, cuda_fwd, cuda_fwd_queries,
+                                cuda_stream, library, stream)
 from msda_tpu_torch.parallel import (auction_assignment, cuda_matcher,
                                      detection_loss, make_train_step)
 from msda_tpu_torch.parallel.matcher import plain_auction
@@ -546,6 +547,245 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         cuda_fwd.msda_fwd(img[:, 1:].contiguous(), shapes, pts, wts)
 
 
+# -- K1's prologue variant (msda_fwd_queries) --------------------------------
+
+# a reduced pyramid (no width a multiple of 8) and the 800x1333 encoder's
+PROLOGUE_PYRAMID = [(30, 44), (15, 22), (8, 11), (4, 6)]
+MANTISSA = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
+
+
+def _queries_inputs(device, dtype, shapes, N, R, B=2, H=8, C=32, P=4,
+                    seed=31, expand=False, spread=2.0):
+    """Seeded img, q ``[B, N, H, L, P, 3]`` (offsets of a few pixels, some
+    points out of bounds; logits of a few units) and reference points: R = 2
+    points (an ``[N, 2]`` array expanded over the batch, stride 0, with
+    ``expand``) or R = 4 boxes."""
+    rng = np.random.default_rng(seed)
+    L, I = len(shapes), sum(h * w for h, w in shapes)  # noqa: E741
+    img = torch.from_numpy(rng.standard_normal(
+        (B, I, H, C), dtype=np.float32)).to(device, dtype)
+    q = rng.standard_normal((B, N, H, L, P, 3), dtype=np.float32)
+    q[..., :2] *= spread * (4.0 if R == 2 else 1.0)
+    q[..., 2] *= 2.0
+    q = torch.from_numpy(q).to(device, dtype)
+    if R == 2:
+        refs = rng.random((1 if expand else B, N, 2), dtype=np.float32)
+        refs = torch.from_numpy(refs).to(device).expand(B, N, 2)
+    else:
+        refs = np.concatenate(
+            [rng.random((B, N, 2)), rng.uniform(0.05, 0.6, (B, N, 2))],
+            -1).astype(np.float32)
+        refs = torch.from_numpy(refs).to(device)
+    return img, shapes, q, refs
+
+
+def _chain_k1(img, shapes, q, refs, normalizer, mode):
+    """The module's chain (``sampling_plain``) and K1 on its points."""
+    pts, wts = cuda_fwd_queries.sampling_plain(q, refs, shapes, normalizer)
+    return cuda_fwd.msda_fwd(img, shapes, pts, wts, *mode)
+
+
+def _ulps(got, want):
+    """The widest gap in ulps of the output's dtype, an ulp taken at
+    max(|want|, 1) (the kernels' outputs are held relative to
+    max(1, |ref|))."""
+    mag = want.double().abs().clamp(min=1.0)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - MANTISSA[want.dtype])
+    return ((got.double() - want.double()).abs() / ulp).max().item()
+
+
+def _check_queries(img, shapes, q, refs, normalizer, mode):
+    """The variant against the chain + K1 (one output ulp at most), once
+    launched; f32 also within K1's 1e-5 of its plain version
+    (``msda_fwd_queries_plain``: the chain and the plain MSDA, which
+    places each point in f32 as the kernels do), and no further from the
+    f64 reference path (the chain and the plain MSDA in f64) than the
+    chain + K1 is, an ulp aside: on these rough random pyramids the f64
+    path places points otherwise, and that alone moves an output by up to
+    3e-5, the chain + K1's as much as the variant's."""
+    before = (cuda_fwd_queries.LAUNCHES, cuda_fwd.LAUNCHES)
+    got = cuda_fwd_queries.msda_fwd_queries(img, shapes, q, refs, normalizer,
+                                            *mode)
+    torch.cuda.synchronize()
+    assert (cuda_fwd_queries.LAUNCHES, cuda_fwd.LAUNCHES) == (
+        before[0] + 1, before[1])
+    want = _chain_k1(img, shapes, q, refs, normalizer, mode)
+    assert got.dtype == want.dtype == img.dtype and got.shape == want.shape
+    assert _ulps(got, want) <= 1.0
+    if img.dtype == torch.float32:
+        _check(got, cuda_fwd_queries.msda_fwd_queries_plain(
+            img, shapes, q, refs, normalizer, *mode), torch.float32)
+        wide = cuda_fwd_queries.msda_fwd_queries_plain(
+            img.double(), shapes, q.double(), refs.double(), normalizer,
+            *mode)
+        scale = wide.abs().clamp(min=1.0)
+        gap = ((got.double() - wide) / scale).abs().max().item()
+        chain_gap = ((want.double() - wide) / scale).abs().max().item()
+        assert gap <= chain_gap + 2.0 ** -23
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("padding_mode,align_corners", MODES)
+@pytest.mark.parametrize("R,N,normalizer,B,H", [
+    (2, None, "reference", 2, 8),  # the encoder's call: every pixel a query
+    (2, None, "detr", 2, 8),
+    (4, 300, "reference", 2, 8),  # the decoder's: 300 queries, boxes
+    (4, 301, "reference", 1, 3),  # a ragged last tile
+    (2, 301, "detr", 1, 3),
+], ids=["enc", "enc_detr", "dec300", "dec301_ragged", "pts301_ragged"])
+def test_queries_kernel_matches_chain_and_k1(device, dtype, padding_mode,
+                                             align_corners, R, N, normalizer,
+                                             B, H):
+    I = sum(h * w for h, w in PROLOGUE_PYRAMID)  # noqa: E741
+    N = N or I
+    img, shapes, q, refs = _queries_inputs(
+        device, dtype, PROLOGUE_PYRAMID, N, R, B=B, H=H, expand=N == I)
+    plan = cuda_fwd_queries.launch_plan(img, shapes, q, refs)
+    assert (plan["stride"], plan["q_bytes"]) == (16, 16) and plan["smem"] > 0
+    assert bool((B * N * H) % plan["tile"]) == (H == 3)  # ragged last tile
+    _check_queries(img, shapes, q, refs, normalizer,
+                   (padding_mode, align_corners))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_queries_kernel_at_the_encoder_shape(device, dtype):
+    """The 800x1333 encoder call (I = 22,223 queries, batch 2, the [I, 2]
+    points expanded over the batch) and its decoder call (300 boxes)."""
+    shapes = [(100, 167), (50, 84), (25, 42), (13, 21)]
+    I = sum(h * w for h, w in shapes)  # noqa: E741
+    img, shapes, q, refs = _queries_inputs(device, dtype, shapes, I, 2,
+                                           expand=True)
+    _check_queries(img, shapes, q, refs, "reference", ("border", False))
+    img, shapes, q, refs = _queries_inputs(device, dtype, shapes, 300, 4)
+    _check_queries(img, shapes, q, refs, "reference", ("border", False))
+
+
+# 3 points a head (a task's 4 lanes, one of them padding; a half-type row
+# of 9 values, which no 4-byte copy divides, is not taken), 16 levels of a
+# point, 32 points (a task a warp), one channel a lane (C = 30) at 5 points
+# (not taken in the half types), 160 channels (two channel steps of a
+# group); not taken: 64 points a head, and 2
+QUERIES_ROW_CASES = [
+    dict(shapes=[(37, 53)], P=3, C=32),
+    dict(shapes=SIXTEEN_LEVELS, P=1, C=32),
+    dict(shapes=SIXTEEN_LEVELS[:8], P=4, C=32),
+    dict(shapes=[(37, 53)], P=5, C=30),
+    dict(shapes=[(37, 53), (19, 27)], P=3, C=160),
+    dict(shapes=SIXTEEN_LEVELS, P=4, C=32),
+    dict(shapes=[(37, 53), (19, 27)], P=1, C=32),
+]
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("R", [2, 4])
+@pytest.mark.parametrize("case", QUERIES_ROW_CASES,
+                         ids=lambda c: f"L{len(c['shapes'])}P{c['P']}"
+                                       f"C{c['C']}")
+def test_queries_kernel_takes_the_shapes_its_plan_takes(device, dtype, R,
+                                                        case):
+    """3 to 32 points a head whose rows of q a 4-byte copy divides: the
+    variant's plan (a task's entries its softmax's lanes) and its outputs;
+    any other shape: the wrapper refuses it without a launch, as
+    ``takes`` (the module's route) does."""
+    img, shapes, q, refs = _queries_inputs(
+        device, dtype, case["shapes"], 45, R, H=3, C=case["C"], P=case["P"])
+    LP = len(shapes) * case["P"]
+    taken = 3 <= LP <= 32 and (3 * LP * q.element_size()) % 4 == 0
+    assert cuda_fwd_queries.takes(img, q) == taken
+    if not taken:
+        before = cuda_fwd_queries.LAUNCHES
+        with pytest.raises(ValueError, match="3 to 32 points"):
+            cuda_fwd_queries.msda_fwd_queries(img, shapes, q, refs)
+        assert cuda_fwd_queries.LAUNCHES == before
+        return
+    plan = cuda_fwd_queries.launch_plan(img, shapes, q, refs)
+    assert plan["stride"] == 1 << (LP - 1).bit_length() and plan["smem"] > 0
+    for mode in MODES:
+        _check_queries(img, shapes, q, refs, "reference", mode)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_queries_kernel_takes_misaligned_q_and_strided_points(device, dtype):
+    """q whose storage starts 4 bytes past a 16-byte boundary (4-byte
+    copies) and reference points that are a strided view; a half-type q
+    starting 2 bytes past one is refused."""
+    img, shapes, q, refs = _queries_inputs(device, dtype, PYRAMID, 77, 4,
+                                           H=3)
+    skip = 4 // q.element_size()
+    buf = torch.empty(q.numel() + skip, dtype=dtype, device=device)
+    q = buf[skip:].view(q.shape).copy_(q)
+    assert q.data_ptr() % 16 == 4
+    refs = torch.cat([refs, refs], -1)[..., 2:6]  # query stride 8
+    assert refs.stride(1) == 8
+    assert cuda_fwd_queries.launch_plan(img, shapes, q, refs)["q_bytes"] == 4
+    for mode in MODES:
+        _check_queries(img, shapes, q, refs, "detr", mode)
+    if dtype != torch.float32:
+        with pytest.raises(ValueError, match="3 to 32 points"):
+            cuda_fwd_queries.msda_fwd_queries(img, shapes, _misaligned(q),
+                                              refs)
+
+
+def test_queries_operator_and_its_capture(device):
+    """``torch.ops.msda_tpu_torch.msda_fwd_queries`` on CUDA tensors
+    launches the variant once with the wrapper's result, passes opcheck,
+    and replays under ``utils.graphs.graphed`` what it computes eagerly,
+    on the new inputs of each replay."""
+    shapes = PROLOGUE_PYRAMID
+    flat = library.flat_shapes(level_shapes(shapes))
+    a = _queries_inputs(device, torch.bfloat16, shapes, 300, 4, seed=1)
+    b = _queries_inputs(device, torch.bfloat16, shapes, 300, 4, seed=2)
+    args = ("reference", "border", False)
+    before = cuda_fwd_queries.LAUNCHES
+    out = library.msda_fwd_queries(a[0], a[2], a[3], flat, *args)
+    assert cuda_fwd_queries.LAUNCHES == before + 1
+    assert torch.equal(out, cuda_fwd_queries.msda_fwd_queries(
+        a[0], shapes, a[2], a[3], *args))
+    torch.library.opcheck(library.msda_fwd_queries,
+                          (a[0], a[2], a[3], flat, *args))
+    serve = graphed(lambda img, q, refs: library.msda_fwd_queries(
+        img, q, refs, flat, *args))
+    with torch.inference_mode():
+        serve(a[0], a[2], a[3])  # the warm-up
+        before = cuda_fwd_queries.LAUNCHES
+        got_a = serve(a[0], a[2], a[3])  # the capture and its replay
+        got_b = serve(b[0], b[2], b[3])
+        assert cuda_fwd_queries.LAUNCHES - before == 2
+    assert torch.equal(got_a, out)
+    assert torch.equal(got_b, cuda_fwd_queries.msda_fwd_queries(
+        b[0], shapes, b[2], b[3], *args))
+    assert not torch.equal(got_a, got_b)
+
+
+def test_queries_wrapper_rejects_what_the_kernel_does_not_take(device):
+    img, shapes, q, refs = _queries_inputs(device, torch.float32, PYRAMID,
+                                           20, 2, H=3)
+    before = cuda_fwd_queries.LAUNCHES
+    call = cuda_fwd_queries.msda_fwd_queries
+    with pytest.raises(ValueError, match="one dtype"):
+        call(img, shapes, q.half(), refs)
+    with pytest.raises(ValueError, match="one dtype"):
+        call(img.double(), shapes, q.double(), refs)
+    with pytest.raises(ValueError, match="reference points in"):
+        call(img, shapes, q, refs.double())
+    with pytest.raises(ValueError, match="one CUDA"):
+        call(img, shapes, q, refs.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(img, shapes, q.transpose(1, 2).contiguous().transpose(1, 2),
+             refs)
+    with pytest.raises(ValueError, match="last axis"):
+        call(img, shapes, q, refs.transpose(0, 2).contiguous()
+             .transpose(0, 2))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        call(img, shapes, q, torch.cat([refs, refs[..., :1]], -1))
+    with pytest.raises(ValueError, match="pixels"):
+        call(img[:, 1:].contiguous(), shapes, q, refs)
+    with pytest.raises(ValueError, match="offset_normalizer"):
+        call(img, shapes, q, refs, "hw")
+    assert cuda_fwd_queries.LAUNCHES == before
+
+
 LEVELS = [(16, 16), (8, 8), (4, 4), (2, 2)]
 
 
@@ -977,17 +1217,18 @@ def _assert_same_detections(got, want):
 def test_graphed_request_matches_the_eager_request(device):
     """The small two-stage detector served through ``graphed`` under
     ``inference_mode``: the capture's replay equal to the eager request
-    (``__wrapped__``), 4 K1 launches a request, replays included; a replay
-    on a second pyramid equal to the eager request on it, and not to the
-    first request's detections."""
+    (``__wrapped__``), 4 launches of K1's prologue variant a request and no
+    K1, replays included; a replay on a second pyramid equal to the eager
+    request on it, and not to the first request's detections."""
     serve, sizes = _serving(device)
     a, b = _pyramid(device, 2, 1), _pyramid(device, 2, 2)
     with torch.inference_mode():
         serve(a, sizes)  # the warm-up
-        before = cuda_fwd.LAUNCHES
+        before = cuda_fwd_queries.LAUNCHES, cuda_fwd.LAUNCHES
         got_a = serve(a, sizes)  # the capture and its replay
         got_b = serve(b, sizes)
-        assert cuda_fwd.LAUNCHES - before == 2 * 4
+        assert (cuda_fwd_queries.LAUNCHES - before[0],
+                cuda_fwd.LAUNCHES - before[1]) == (2 * 4, 0)
         _assert_same_detections(got_a, serve.__wrapped__(a, sizes))
         _assert_same_detections(got_b, serve.__wrapped__(b, sizes))
     assert not torch.equal(got_a["scores"], got_b["scores"])
