@@ -19,7 +19,8 @@
 //
 // The names, in the order of their index (utils/profile.py DEVICE_SPANS):
 // encoder, decoder, postprocess, loss, backward, optimizer, proposals,
-// proposal_loss (the last two nested in decoder and loss).
+// proposal_loss, dn_queries, dn_loss (proposals and dn_queries nested in
+// decoder, proposal_loss and dn_loss in loss).
 //
 // Interface: plain C entry points, loaded with ctypes by utils/profile.py.
 // msda_span_launch(span, edge, stream) launches one marker on the given
@@ -41,6 +42,8 @@ struct backward {};
 struct optimizer {};
 struct proposals {};
 struct proposal_loss {};
+struct dn_queries {};
+struct dn_loss {};
 
 struct begin {};
 struct end {};
@@ -61,7 +64,8 @@ struct Span {
 const Span kMarkers[] = {
     MSDA_SPAN(encoder),   MSDA_SPAN(decoder),       MSDA_SPAN(postprocess),
     MSDA_SPAN(loss),      MSDA_SPAN(backward),      MSDA_SPAN(optimizer),
-    MSDA_SPAN(proposals), MSDA_SPAN(proposal_loss),
+    MSDA_SPAN(proposals), MSDA_SPAN(proposal_loss), MSDA_SPAN(dn_queries),
+    MSDA_SPAN(dn_loss),
 };
 #undef MSDA_SPAN
 

@@ -5,7 +5,8 @@ the flattened feature pyramid, a decoder with learned queries, and detection
 heads, the architecture of arXiv:2010.04159 §4 with both paper variants
 (iterative box refinement and two-stage), and, beside the JAX package's
 static-shape two-stage form, the two-stage form as published
-(``two_stage="published"``: ``DeformableDetr``'s docstring).
+(``two_stage="published"``) and DINO (arXiv:2203.03605, ``two_stage="dino"``:
+``DeformableDetr``'s docstring).
 ``postprocess`` decodes the outputs into ranked detections.  Parameters
 are made with PyTorch's default initialisation; :func:`init_parameters`
 re-draws them from a ``torch.Generator``, and
@@ -34,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import cuda_norm, level_shapes, library
 from ..parallel.boxes import box_cxcywh_to_xyxy
 from ..utils.profile import annotate
+from . import denoising
 from .attention import Dense, MultiscaleDeformableAttention, device_constant
 
 __all__ = [
@@ -41,6 +43,7 @@ __all__ = [
     "make_proposal_anchors",
     "make_proposal_logits",
     "proposal_pos_embed",
+    "box_pos_embed",
     "LayerNorm",
     "MultiHeadSelfAttention",
     "DeformableEncoderLayer",
@@ -107,11 +110,30 @@ def proposal_pos_embed(proposals: torch.Tensor, width: int) -> torch.Tensor:
     ``width / 4``, the sine of the even i and the cosine of the odd i,
     interleaved: [..., width], f32.
     """
+    return _sine_embed(proposals.float().sigmoid(), width)
+
+
+def box_pos_embed(boxes: torch.Tensor, width: int) -> torch.Tensor:
+    """DINO's positional embedding of its reference boxes (the official
+    ``gen_sineembed_for_position``): ``boxes`` [..., 4] cxcywh in [0, 1],
+    embedded as :func:`proposal_pos_embed` embeds a proposal's sigmoids but
+    in DINO's (y, x, w, h) order: [..., width], f32."""
+    boxes = boxes.float()
+    # slices, not an index list: a list is a host tensor, which a CUDA
+    # graph's capture cannot copy
+    return _sine_embed(torch.cat([boxes[..., 1:2], boxes[..., :1],
+                                  boxes[..., 2:]], -1), width)
+
+
+def _sine_embed(pos: torch.Tensor, width: int) -> torch.Tensor:
+    """Each coordinate of ``pos`` [..., 4] (in [0, 1]) times 2 pi, over
+    ``10000^(2 floor(i / 2) / F)`` for i < F = ``width / 4``, the sine of
+    the even i and the cosine of the odd i, interleaved: [..., width]."""
     feats = width // 4
-    dim_t = torch.arange(feats, dtype=torch.float32, device=proposals.device)
+    dim_t = torch.arange(feats, dtype=torch.float32, device=pos.device)
     dim_t = 10000.0 ** (2 * torch.div(dim_t, 2, rounding_mode="floor")
                         / feats)
-    pos = proposals.float().sigmoid() * (2 * math.pi)
+    pos = pos * (2 * math.pi)
     pos = pos[..., None] / dim_t  # [..., 4, F]
     pos = torch.stack((pos[..., 0::2].sin(), pos[..., 1::2].cos()), dim=-1)
     return pos.flatten(-3)
@@ -201,13 +223,33 @@ class _FFN(nn.Module):
         return self.norm_0(x, y)
 
 
+class _MLP(nn.Module):
+    """``layers`` dense layers with a ReLU between two (DINO's ``MLP``): the
+    widths ``n_in``, ``hidden`` ... ``hidden``, ``n_out``."""
+
+    def __init__(self, n_in: int, hidden: int, n_out: int, layers: int,
+                 compute_dtype=None, device=None):
+        super().__init__()
+        dims = [n_in] + [hidden] * (layers - 1) + [n_out]
+        self.layers = nn.ModuleList(
+            Dense(a, b, compute_dtype, device)
+            for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x) if i == 0 else layer(torch.relu(x))
+        return x
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Decoder query self-attention, as flax ``MultiHeadDotProductAttention``
     computes it: per-head query/key/value projections, scores scaled by
-    ``1/sqrt(head_dim)``, a softmax over keys (in f32), no mask, no dropout,
-    and an output projection.  Explicit matmuls, no fused attention kernel.
+    ``1/sqrt(head_dim)``, a softmax over keys (in f32), no dropout, and an
+    output projection.  Explicit matmuls, no fused attention kernel.
     With ``query_pos`` (the published two-stage form), queries and keys
-    are projected from ``x + query_pos`` and values from ``x``.
+    are projected from ``x + query_pos`` and values from ``x``.  ``mask``
+    (``[N, N]`` bool, DINO's group mask) sets the scores where it is True
+    to -inf; without it nothing is masked.
     """
 
     def __init__(self, dim: int, num_heads: int, compute_dtype=None,
@@ -223,7 +265,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.out = Dense(dim, dim, compute_dtype, device)
 
     def forward(self, x: torch.Tensor,
-                query_pos: torch.Tensor | None = None) -> torch.Tensor:
+                query_pos: torch.Tensor | None = None,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
         B, N, D = x.shape
         H = self.num_heads
         Dh = D // H
@@ -236,6 +279,8 @@ class MultiHeadSelfAttention(nn.Module):
         k = heads(self.key(qk))
         v = heads(self.value(x))
         scores = torch.matmul(q, k.transpose(-1, -2))  # [B, H, N, N]
+        if mask is not None:
+            scores = scores.masked_fill(mask, float("-inf"))
         weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
         y = torch.matmul(weights, v).transpose(1, 2).reshape(B, N, D)
         return self.out(y)
@@ -288,11 +333,13 @@ class DeformableDecoderLayer(nn.Module):
         self.ffn = _FFN(emb_dim, ffn_dim, compute_dtype, device)
 
     def forward(self, queries, feats, img_shapes, reference_points,
-                query_pos=None):
+                query_pos=None, attn_mask=None):
         """queries [B, N, D]; feats [B, I, D]; reference_points [B, N, 2|4];
-        query_pos None or [B, N, D] (the published two-stage form's: added
-        to the queries that attend, never to the residual)."""
-        x = self.norm_0(queries, self.self_attn(queries, query_pos))
+        query_pos None or [B, N, D] (the published two-stage form's and
+        DINO's: added to the queries that attend, never to the residual);
+        attn_mask None or the self-attention's [N, N] mask (DINO's)."""
+        x = self.norm_0(queries, self.self_attn(queries, query_pos,
+                                                attn_mask))
         y = self.msda(feats, img_shapes,
                       x if query_pos is None else x + query_pos,
                       reference_points)
@@ -335,7 +382,36 @@ class DeformableDetr(nn.Module):
       (``parallel.detection_loss``) proposal term.  With box refinement
       the encoder's heads are a seventh class and box head beside the
       decoder's six; without it, heads of their own beside the decoder's
-      one (the official shares the decoder's there).
+      one (the official shares the decoder's there);
+    * *DINO* (``two_stage="dino"``; arXiv:2203.03605, the official
+      ``DINO_5scale`` configuration with ``two_stage_type="standard"``,
+      ``embed_init_tgt`` and the heads shared across the decoder layers):
+      the published proposal stage but for its heads (``enc_class_head``,
+      and ``enc_box_head`` a 3-layer MLP), in the span ``proposals``; the
+      ``num_queries`` tokens of the highest class logit, any class, are
+      chosen (*mixed query selection*): their detached boxes are the first
+      reference boxes, the content queries a learned ``query_embedding``,
+      and the heads at the chosen tokens, undetached, are the
+      ``interm`` outputs.  Each decoder layer takes ``query_pos =
+      ref_point_head(box_pos_embed(r))`` from its reference box r
+      (``ref_point_head`` an MLP 2D to D to D); the layer's un-normed
+      output o updates the box, ``sigmoid(box_head(o) + logit(r))``,
+      detached for the next layer; the layer's prediction is
+      ``class_head`` and ``box_head`` (one class head and one 3-layer box
+      MLP shared by every layer) on ``decoder_norm(o)``, its box added to
+      the logits of the layer before's updated box, undetached
+      (*look forward twice*: layer i's loss trains layer i - 1).  Given
+      ``targets`` and ``max_targets`` (a host int, the batch's largest
+      count of real targets), the span ``dn_queries`` builds DINO's
+      contrastive denoising queries (``models/denoising.py``: labels
+      through ``label_enc``, noised boxes) and the group attention mask,
+      and the DN queries run before the matching ones; their outputs come
+      apart as ``dn`` (``{"logits", "boxes", "aux", "draws"}``) with
+      ``dn_meta`` (host ints ``max_targets``, ``groups``, ``pad``), as
+      the official ``dn_post_process`` splits them.  The outputs also hold
+      ``proposals`` (``{"logits" [B, I, K], "top_idx" [B, num_queries]}``),
+      which no loss reads.  ``aux`` holds the first layers' predictions
+      whatever ``with_box_refinement`` says.
 
     ``in_channels`` gives ``C_l`` per level (its length is the number of
     levels).  ``compute_dtype=torch.bfloat16`` runs the transformer stack
@@ -366,9 +442,9 @@ class DeformableDetr(nn.Module):
         mesh=None,
     ):
         super().__init__()
-        if two_stage not in (False, True, "published"):
-            raise ValueError(f"two_stage must be False, True or "
-                             f"'published', got {two_stage!r}")
+        if two_stage not in (False, True, "published", "dino"):
+            raise ValueError(f"two_stage must be False, True, 'published' "
+                             f"or 'dino', got {two_stage!r}")
         L = len(in_channels)
         self.num_classes = num_classes
         self.emb_dim = emb_dim
@@ -393,7 +469,9 @@ class DeformableDetr(nn.Module):
         self.encoder_layers = nn.ModuleList(
             DeformableEncoderLayer(**layer_args)
             for _ in range(num_encoder_layers))
-        if two_stage == "published":
+        if two_stage == "dino":
+            self._init_dino(emb_dim, num_classes, num_queries, cd, device)
+        elif two_stage == "published":
             self.enc_output = Dense(emb_dim, emb_dim, cd, device)
             self.enc_output_norm = LayerNorm(emb_dim, cd, device)
             self.enc_class_head = Dense(emb_dim, num_classes, device=device)
@@ -413,22 +491,50 @@ class DeformableDetr(nn.Module):
         self.decoder_layers = nn.ModuleList(
             DeformableDecoderLayer(**layer_args)
             for _ in range(num_decoder_layers))
-        n_refine = num_decoder_layers - 1 if with_box_refinement else 0
+        # the DINO form shares one class head and one box MLP across layers
+        n_refine = (num_decoder_layers - 1
+                    if with_box_refinement and two_stage != "dino" else 0)
         self.box_refine = nn.ModuleList(
             Dense(emb_dim, 4, device=device) for _ in range(n_refine))
         self.aux_class = nn.ModuleList(
             Dense(emb_dim, num_classes, device=device)
             for _ in range(n_refine))
+        if two_stage == "dino":
+            self.decoder_norm = LayerNorm(emb_dim, cd, device)
         self.class_head = Dense(emb_dim, num_classes, device=device)
-        self.box_head = Dense(emb_dim, 4, device=device)
+        self.box_head = (_MLP(emb_dim, emb_dim, 4, 3, device=device)
+                         if two_stage == "dino" else
+                         Dense(emb_dim, 4, device=device))
 
-    def forward(self, pyramid: Sequence[torch.Tensor], img_shapes):
+    def _init_dino(self, D, num_classes, num_queries, cd, device):
+        """The DINO form's own modules but the decoder's (the class
+        docstring)."""
+        self.enc_output = Dense(D, D, cd, device)
+        self.enc_output_norm = LayerNorm(D, cd, device)
+        self.enc_class_head = Dense(D, num_classes, device=device)
+        self.enc_box_head = _MLP(D, D, 4, 3, device=device)
+        self.query_embedding = nn.Parameter(
+            torch.zeros(num_queries, D, device=device))
+        self.ref_point_head = _MLP(2 * D, D, D, 2, cd, device)
+        # a row a class and one more, as DINO's dn_labelbook_size + 1
+        self.label_enc = nn.Embedding(num_classes + 1, D, device=device)
+
+    def forward(self, pyramid: Sequence[torch.Tensor], img_shapes,
+                targets: dict | None = None,
+                max_targets: int | None = None):
         """pyramid: per-level features [B, h_l, w_l, C_l]; img_shapes [L, 2].
 
         Returns dict(logits=[B, N, num_classes], boxes=[B, N, 4] in
         normalized cxcywh), plus ``aux`` (box refinement) and ``enc``
-        (two-stage).
+        (two-stage).  ``targets`` (``detection_loss``'s) and ``max_targets``
+        (a host int, the largest count of real targets of an image of the
+        batch) build the DINO form's denoising queries; no other form takes
+        them.
         """
+        if max_targets is not None and self.two_stage != "dino":
+            raise ValueError("targets and max_targets build the denoising "
+                             "queries of DeformableDetr(two_stage='dino') "
+                             "alone")
         shapes = level_shapes(img_shapes)  # once, on the host
 
         def run(layer, *args):
@@ -443,6 +549,15 @@ class DeformableDetr(nn.Module):
         with annotate("encoder"):
             feats = self._encode(pyramid, shapes, run)
         with annotate("decoder"):
+            if self.two_stage == "dino":
+                with annotate("proposals"):
+                    start = self._dino_proposals(feats, shapes)
+                dn = None
+                if targets is not None and max_targets:
+                    with annotate("dn_queries"):
+                        dn = self._dn_queries(targets, int(max_targets),
+                                              feats)
+                return self._decode_dino(feats, shapes, run, *start, dn)
             if self.two_stage == "published":
                 with annotate("proposals"):
                     start = self._proposals(feats, shapes)
@@ -503,10 +618,10 @@ class DeformableDetr(nn.Module):
         queries = queries + self.proposal_pos_proj(refs)
         return queries, None, refs, enc_out
 
-    def _proposals(self, feats, shapes):
-        """The published two-stage form's proposal stage (the class
-        docstring).  Returns ``(queries, query_pos, refs, enc outputs)``."""
-        D = self.emb_dim
+    def _proposal_heads(self, feats, shapes):
+        """Every token's proposal, as the published two-stage form and DINO
+        make them (the class docstring): ``(class logits [B, I, K], box
+        logits [B, I, 4], +inf where the anchor is invalid)``."""
         logits = device_constant(
             self._constants, ("proposal_logits", shapes),
             lambda device: make_proposal_logits(shapes, device), feats)
@@ -516,8 +631,13 @@ class DeformableDetr(nn.Module):
             feats)  # [I, 1]
         memory = self.enc_output_norm(self.enc_output(
             feats.masked_fill(~valid, 0.0)))
-        enc_logits = self.enc_class_head(memory)  # [B, I, K]
-        enc_unact = self.enc_box_head(memory) + logits  # +inf where invalid
+        return self.enc_class_head(memory), self.enc_box_head(memory) + logits
+
+    def _proposals(self, feats, shapes):
+        """The published two-stage form's proposal stage (the class
+        docstring).  Returns ``(queries, query_pos, refs, enc outputs)``."""
+        D = self.emb_dim
+        enc_logits, enc_unact = self._proposal_heads(feats, shapes)
         top_idx = torch.topk(enc_logits[..., 0], self.num_queries,
                              dim=1).indices  # [B, Nq]
         top = torch.gather(enc_unact, 1, top_idx[..., None].expand(
@@ -528,6 +648,87 @@ class DeformableDetr(nn.Module):
         enc_out = {"logits": enc_logits, "boxes": torch.sigmoid(enc_unact),
                    "top_idx": top_idx}
         return queries, query_pos, torch.sigmoid(top), enc_out
+
+    def _dino_proposals(self, feats, shapes):
+        """The DINO form's proposal stage and mixed query selection (the
+        class docstring).  Returns ``(queries, box logits [B, Nq, 4]
+        detached, interm outputs, proposals)``."""
+        B = feats.shape[0]
+        enc_logits, enc_unact = self._proposal_heads(feats, shapes)
+        top_idx = torch.topk(enc_logits.max(-1).values, self.num_queries,
+                             dim=1).indices  # [B, Nq]
+        K = enc_logits.shape[-1]
+        top = torch.gather(enc_unact, 1, top_idx[..., None].expand(-1, -1, 4))
+        interm = {"logits": torch.gather(
+                      enc_logits, 1, top_idx[..., None].expand(-1, -1, K)),
+                  "boxes": torch.sigmoid(top)}
+        queries = self.query_embedding[None].expand(B, -1, -1)
+        if self.compute_dtype is not None:
+            queries = queries.to(self.compute_dtype)
+        return (queries, top.detach(), interm,
+                {"logits": enc_logits, "top_idx": top_idx})
+
+    def _dn_queries(self, targets, m, feats):
+        """The DN queries, their box logits and draws, and the group mask
+        for a batch whose largest count of real targets is ``m``
+        (``models/denoising.py``), or None where that makes none."""
+        groups, pad = denoising.cdn_shape(m)
+        if not pad:
+            return None
+        draws = denoising.draw(feats.shape[0], groups, m, self.num_classes,
+                               feats.device)
+        queries, unact = denoising.build(self.label_enc.weight, targets, m,
+                                         groups, draws)
+        if self.compute_dtype is not None:
+            queries = queries.to(self.compute_dtype)
+        mask = device_constant(
+            self._constants, ("dn_mask", m, groups, self.num_queries),
+            lambda device: denoising.attention_mask(m, groups,
+                                                    self.num_queries, device),
+            feats)
+        return {"queries": queries, "unact": unact, "mask": mask,
+                "draws": draws,
+                "meta": {"max_targets": m, "groups": groups, "pad": pad}}
+
+    def _decode_dino(self, feats, shapes, run, queries, unact, interm,
+                     proposals, dn):
+        """The DINO form's decoder and shared heads (the class docstring),
+        over the DN queries (``dn``, or None) and the matching queries."""
+        pad, mask = 0, None
+        if dn is not None:
+            pad, mask = dn["meta"]["pad"], dn["mask"]
+            queries = torch.cat([dn["queries"], queries], 1)
+            unact = torch.cat([dn["unact"], unact], 1)
+        refs = torch.sigmoid(unact)
+        before = refs  # the box the next prediction is added to
+        preds = []
+        n = len(self.decoder_layers)
+        for i, layer in enumerate(self.decoder_layers):
+            query_pos = self.ref_point_head(box_pos_embed(
+                refs, 2 * self.emb_dim))
+            queries = run(layer, queries, feats, shapes, refs, query_pos,
+                          mask)
+            hs = self.decoder_norm(queries)
+            preds.append((self.class_head(hs), torch.sigmoid(
+                self.box_head(hs) + _inv_sigmoid(before))))
+            if i + 1 < n:
+                before = torch.sigmoid(self.box_head(queries)
+                                       + _inv_sigmoid(refs))
+                refs = before.detach()
+
+        def heads(part):
+            return [{"logits": c[:, part], "boxes": b[:, part]}
+                    for c, b in preds]
+
+        matching = heads(slice(pad, None))
+        out = dict(matching[-1], aux=matching[:-1], interm=interm,
+                   proposals=proposals)
+        if dn is not None:
+            dn_heads = heads(slice(0, pad))
+            out["dn"] = dict(dn_heads[-1], aux=dn_heads[:-1],
+                             draws=dn["draws"])
+            out["dn_meta"] = dn["meta"]
+        return out
 
     def _decode(self, feats, shapes, run, queries, query_pos, refs, enc_out):
         """The decoder layers, the box refinement and the heads."""
@@ -582,7 +783,10 @@ def init_parameters(module: nn.Module,
     * level and query embeddings normal(0.02), reference-box logits
       normal(0.5), as the JAX model draws them;
     * in the published two-stage form, the encoder's box head zero and its
-      class head's bias at the prior, as the decoder's.
+      class head's bias at the prior, as the decoder's;
+    * in the DINO form, the last layer of each box MLP zero, both class
+      heads' biases at the prior and the label table normal(1), as the
+      official DINO initialises them.
 
     With these weights the sampling positions do not depend on the
     features, so a full-width model is well conditioned: on an H100, a
@@ -616,14 +820,18 @@ def init_parameters(module: nn.Module,
         elif isinstance(m, DeformableDetr):
             normal(m.level_embedding, 0.02)
             published = m.two_stage == "published"
+            dino = m.two_stage == "dino"
             if not published:
                 normal(m.query_embedding, 0.02)
             if not m.two_stage:
                 normal(m.reference_box_logits, 0.5)
             enc = [m.enc_box_head] if published else []
+            if dino:
+                enc = [m.enc_box_head.layers[-1], m.box_head.layers[-1]]
+                normal(m.label_enc.weight, 1.0)
             for head in [*m.box_refine, *enc]:
                 head.weight.zero_()
-            enc = [m.enc_class_head] if published else []
+            enc = [m.enc_class_head] if published or dino else []
             prior = -math.log((1 - 0.01) / 0.01)
             for head in [m.class_head, *m.aux_class, *enc]:
                 head.bias.fill_(prior)

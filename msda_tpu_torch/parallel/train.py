@@ -8,7 +8,10 @@ auction matcher or a fixed teacher-forced matching, and the two-stage
 encoder proposals pay their own loss: objectness + box in the JAX
 package's static-shape form, and in the published form
 (``DeformableDetr(two_stage="published")``) the decoder's loss over every
-encoder token with every target's class set to 0.  ``make_train_step``
+encoder token with every target's class set to 0; the DINO form
+(``DeformableDetr(two_stage="dino")``) adds the loss of its selected
+proposals (``interm``) and of its denoising queries (``dn``).
+``make_train_step``
 builds the step: forward, loss, backward, optimizer step.  On a card
 without a mesh the step is captured once as a CUDA graph and replayed, the
 counterpart of the JAX step's ``jax.jit``: one program a step, with no host
@@ -28,6 +31,7 @@ rank the same parameters.
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import torch
@@ -35,6 +39,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..models import denoising
 from ..utils.graphs import _same, graphed
 from ..utils.profile import annotate
 from .boxes import generalized_box_iou
@@ -50,7 +55,8 @@ def detection_loss(outputs, targets, matcher: str = "fixed",
                    giou_weight: float = 2.0, class_loss: str = "ce",
                    eos_coef: float = 0.1, l1_weight: float = 5.0,
                    matcher_rounds: int = 2000,
-                   return_metrics: bool = False, group=None):
+                   return_metrics: bool = False, group=None,
+                   class_cost_weight: float = 1.0):
     """Detection loss (classification + 5 * L1 box + 2 * GIoU, the
     published Deformable DETR weights, arXiv:2010.04159 §4.1; GIoU per
     arXiv:1902.09630).  ``giou_weight=0`` disables the GIoU term
@@ -81,7 +87,12 @@ def detection_loss(outputs, targets, matcher: str = "fixed",
     :func:`_enc_proposal_loss` scaled by ``enc_weight``, or, from the
     published two-stage form (``enc`` with ``top_idx``),
     :func:`_published_proposal_loss` so scaled, in the span
-    ``proposal_loss``.
+    ``proposal_loss``.  The DINO form's ``outputs["interm"]`` (its selected
+    proposals) pay the decoder's loss, matched, scaled by ``enc_weight``;
+    its ``outputs["dn"]`` (the denoising queries' predictions, every layer)
+    pay :func:`_denoising_loss`, in the span ``dn_loss``.
+    ``class_cost_weight`` scales the matching cost's class term (DINO's
+    is 2).
 
     With ``return_metrics=True`` the call returns ``(loss, metrics)``, where
     ``metrics["matcher_converged"]`` is a bool tensor on the loss's device:
@@ -93,15 +104,29 @@ def detection_loss(outputs, targets, matcher: str = "fixed",
     normalisers are summed over the group, so that the shares sum to the
     loss of the whole batch.
     """
+    head_kw = dict(l1_weight=l1_weight, matcher_rounds=matcher_rounds,
+                   group=group, class_cost_weight=class_cost_weight)
     loss, converged = _single_detection_loss(
         outputs, targets, matcher, giou_weight, class_loss, eos_coef,
-        l1_weight=l1_weight, matcher_rounds=matcher_rounds, group=group)
+        **head_kw)
     for aux_out in outputs.get("aux", ()):
         aux_loss, aux_conv = _single_detection_loss(
             aux_out, targets, matcher, giou_weight, class_loss, eos_coef,
-            l1_weight=l1_weight, matcher_rounds=matcher_rounds, group=group)
+            **head_kw)
         loss = loss + aux_weight * aux_loss
         converged = converged & aux_conv
+    interm = outputs.get("interm")
+    if interm is not None:
+        interm_loss, interm_conv = _single_detection_loss(
+            interm, targets, matcher, giou_weight, class_loss, eos_coef,
+            **head_kw)
+        loss = loss + enc_weight * interm_loss
+        converged = converged & interm_conv
+    if "dn" in outputs:
+        with annotate("dn_loss"):
+            loss = loss + _denoising_loss(
+                outputs["dn"], outputs["dn_meta"], targets, aux_weight,
+                giou_weight, class_loss, l1_weight=l1_weight, group=group)
     enc = outputs.get("enc")
     if enc is not None and "top_idx" in enc:
         with annotate("proposal_loss"):
@@ -199,10 +224,49 @@ def _published_proposal_loss(enc, targets, matcher, giou_weight=2.0,
         matcher_rounds=matcher_rounds, group=group)
 
 
+def _denoising_loss(dn, meta, targets, aux_weight=1.0, giou_weight=2.0,
+                    class_loss="focal", focal_alpha=0.25, focal_gamma=2.0,
+                    l1_weight=5.0, group=None):
+    """The DINO denoising loss (the official ``SetCriterion``'s ``_dn``
+    terms), which matches nothing: each DN query's target is fixed by its
+    place (``models.denoising.dn_targets``).  At each layer (the last, and
+    ``aux_weight`` times each of ``dn["aux"]``): the sigmoid focal loss over
+    every DN query, a positive copy of a real target toward its label and
+    every other query (negatives, padding) toward no object, plus L1 and
+    GIoU on the positives' boxes, each over the number of real targets
+    times ``meta["groups"]``.  ``meta``: the model's ``dn_meta``."""
+    if class_loss != "focal":
+        raise ValueError("the denoising loss is DINO's sigmoid focal loss: "
+                         f"class_loss must be 'focal', got {class_loss!r}")
+    K = dn["logits"].shape[-1]
+    labels, tboxes, positive = denoising.dn_targets(
+        targets, meta["max_targets"], meta["groups"], K)
+    pos = positive.to(dn["logits"].dtype)
+    # every box is compared, the positives' alone counted: a placeholder
+    # box where there is no target keeps GIoU finite
+    tboxes = torch.where(positive[..., None], tboxes,
+                         torch.full_like(tboxes, 0.5))
+    onehot = F.one_hot(labels, K + 1)[..., :K].to(dn["logits"].dtype)
+    n = _total(targets["mask"].to(pos.dtype).sum(), group).clamp(
+        min=1.0) * meta["groups"]
+    loss = 0.0
+    for i, head in enumerate([dn, *dn["aux"]]):
+        cls = _sigmoid_focal(head["logits"], onehot, focal_alpha,
+                             focal_gamma).sum() / n
+        l1 = ((head["boxes"] - tboxes).abs().sum(-1) * pos).sum() / n
+        term = cls + l1_weight * l1
+        if giou_weight:
+            giou = generalized_box_iou(head["boxes"], tboxes)
+            term = term + giou_weight * ((1.0 - giou) * pos).sum() / n
+        loss = loss + (term if i == 0 else aux_weight * term)
+    return loss
+
+
 def _single_detection_loss(outputs, targets, matcher, giou_weight=2.0,
                            class_loss="ce", eos_coef=0.1,
                            focal_alpha=0.25, focal_gamma=2.0,
-                           l1_weight=5.0, matcher_rounds=2000, group=None):
+                           l1_weight=5.0, matcher_rounds=2000, group=None,
+                           class_cost_weight=1.0):
     """Loss for one prediction head.  Returns ``(loss, converged)``, where
     ``converged`` is a bool tensor: True unless the auction matcher failed
     to assign every active target within ``matcher_rounds`` for some batch
@@ -226,6 +290,7 @@ def _single_detection_loss(outputs, targets, matcher, giou_weight=2.0,
         cost_kind = "focal" if class_loss == "focal" else "softmax"
         with torch.no_grad():
             cost = matching_cost(logits, boxes, labels, tboxes,
+                                 class_weight=class_cost_weight,
                                  class_cost=cost_kind)  # [B, N, M]
             # masked-out targets must not steal queries: make them cheap
             # everywhere equally (constant column -> arbitrary but harmless)
@@ -391,7 +456,8 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
                     giou_weight: float = 2.0, class_loss: str = "ce",
                     eos_coef: float = 0.1, l1_weight: float = 5.0,
                     matcher_rounds: int = 2000,
-                    return_metrics: bool = False, mesh=None):
+                    return_metrics: bool = False, mesh=None,
+                    class_cost_weight: float = 1.0):
     """Build a train step ``step(pyramid, targets) -> loss`` for ``model``
     (an ``nn.Module`` returning the outputs :func:`detection_loss` takes)
     and a ``torch.optim`` ``optimizer`` over its parameters.
@@ -400,7 +466,13 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
     backward, and steps the optimizer; the last three in the profiler spans
     (``utils.profile.annotate``) "loss", "backward" and "optimizer", which
     the graphed step's replays carry as device spans.  Every
-    :func:`detection_loss` knob is threaded through.  ``torch.optim.AdamW(params, lr,
+    :func:`detection_loss` knob is threaded through.
+    ``step(pyramid, targets, max_targets)``, ``max_targets`` a host int
+    (the batch's largest count of real targets), passes the targets to
+    the model for the DINO form's denoising queries
+    (``DeformableDetr(two_stage="dino")``); each value is a signature of
+    its own below, and each call adds its DN queries to
+    ``models.denoising.BUILT``.  ``torch.optim.AdamW(params, lr,
     weight_decay=1e-4)`` is the counterpart of the JAX demo's
     ``optax.adamw(lr)``: pass ``weight_decay`` explicitly, since optax's
     default is 1e-4 and torch's 1e-2.
@@ -471,17 +543,22 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
                    enc_weight=enc_weight, giou_weight=giou_weight,
                    class_loss=class_loss, eos_coef=eos_coef,
                    l1_weight=l1_weight, matcher_rounds=matcher_rounds,
-                   return_metrics=True)
+                   return_metrics=True, class_cost_weight=class_cost_weight)
     copies = 1
     if mesh is not None:
         dp, _, dp_group = axis(mesh, "dp")
         copies = axis(mesh, "sp")[0] * axis(mesh, "tp")[0]
         loss_kw["group"] = dp_group if dp > 1 else None
 
-    def step(pyramid, targets):
+    def step(pyramid, targets, max_targets=None):
         optimizer.zero_grad(set_to_none=True)
-        outputs = model(pyramid, img_shapes if img_shapes is not None else
-                        tuple(tuple(level.shape[1:3]) for level in pyramid))
+        shapes = (img_shapes if img_shapes is not None else
+                  tuple(tuple(level.shape[1:3]) for level in pyramid))
+        if max_targets is None:
+            outputs = model(pyramid, shapes)
+        else:
+            outputs = model(pyramid, shapes, targets=targets,
+                            max_targets=max_targets)
         with annotate("loss"):
             loss, metrics = detection_loss(outputs, targets, **loss_kw)
         with annotate("backward"):
@@ -505,13 +582,20 @@ def make_train_step(model, optimizer, img_shapes, matcher: str = "fixed",
 
     device = _param_device(model)
     if mesh is not None or device.type != "cuda":
-        def eager_step(pyramid, targets):
-            return step(pyramid, targets)
+        run = step
+    else:
+        _check_capturable(optimizer)
+        run = graphed(step, options=_options_reader(optimizer))
 
-        eager_step.__wrapped__ = step
-        return eager_step
-    _check_capturable(optimizer)
-    return graphed(step, options=_options_reader(optimizer))
+    def counted(pyramid, targets, max_targets=None):
+        if max_targets:  # the DINO form's DN queries, counted on the host
+            denoising.BUILT += (pyramid[0].shape[0]
+                                * denoising.cdn_shape(max_targets)[1])
+        return run(pyramid, targets, max_targets)
+
+    functools.update_wrapper(counted, run)  # its name, stats(), cache_size()
+    counted.__wrapped__ = step
+    return counted
 
 
 def _param_device(model: nn.Module) -> torch.device:

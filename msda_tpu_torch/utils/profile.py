@@ -38,10 +38,12 @@ What a span records:
 
 The names that carry markers are the model's layers: ``encoder`` and
 ``decoder`` (``models/detr.py``), ``postprocess`` (``models.postprocess``),
-``loss``, ``backward`` and ``optimizer`` (``parallel/train.py``), and two
-spans nested in them, the published two-stage detector's proposal stage,
-``proposals`` (inside ``decoder``), and its proposal matching and loss,
-``proposal_loss`` (inside ``loss``).  Every
+``loss``, ``backward`` and ``optimizer`` (``parallel/train.py``), and
+spans nested in them: the two-stage detectors' proposal stage,
+``proposals`` (inside ``decoder``), the published form's proposal matching
+and loss, ``proposal_loss`` (inside ``loss``), the DINO form's denoising
+queries, ``dn_queries`` (inside ``decoder``), and their loss, ``dn_loss``
+(inside ``loss``).  Every
 other name (``graphed.*`` in ``utils/graphs.py``, ``msda.fwd`` and
 ``msda.bwd`` in ``ops/library.py``) is a host span only: the op runs 24
 times a request, and markers there would cost a request 48 graph nodes.
@@ -71,7 +73,8 @@ TRACE_FILE = "trace.json"
 #: order (a name's index is its marker's; :func:`prepare_markers` holds the
 #: library's table to it)
 DEVICE_SPANS = ("encoder", "decoder", "postprocess", "loss", "backward",
-                "optimizer", "proposals", "proposal_loss")
+                "optimizer", "proposals", "proposal_loss", "dn_queries",
+                "dn_loss")
 _SPAN_INDEX = {name: i for i, name in enumerate(DEVICE_SPANS)}
 # a marker kernel's name in a trace: its span's name and edge
 _MARKER = re.compile(r"msda_span<\s*(\w+)\s*,\s*(begin|end)\s*>")
